@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (log_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Needs a CUDA device and nvcc; exits non-zero without them. Phases:
 
@@ -14,13 +14,30 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    while the inputs of every kernel call are recorded; each CUDA kernel is
    then replayed on those main-path inputs against its plain torch version
    (K4 and K3 bit-exact, K1 within the tolerances below), both timed;
-4. slice: launch counters reset, 12 orbit frames through
+4. serving slice: launch counters reset, 12 orbit frames through
    NaiveRendererAndLoss.vis -> LoG.render_fused (2 warm-up), timed with
-   torch.cuda.synchronize(); every kernel must have launched;
-5. checks: the frames are finite, of the expected shape and not blank;
-   frame 0 rendered again with the plain versions agrees with the kernels;
-   a small tree rendered through the kernels agrees with the oracle
-   rasterizer (rasterize_ref) on the same card.
+   torch.cuda.synchronize(); every kernel of the path must have launched;
+5. serving checks: the frames are finite, of the expected shape and not
+   blank; frame 0 rendered again with the plain versions agrees with the
+   kernels; a small tree rendered through the kernels agrees with the oracle
+   rasterizer (rasterize_ref) on the same card;
+6. training setup: the same tree loaded with split="train" (zero Adam
+   moments, the counter's radius bounds), base_iter 20 as in
+   config/synthetic/train.yml, training_setup; ground truth: 4 orbit views
+   rendered by the unperturbed tree (render_fused, 8-bit); then the colors
+   and opacities are perturbed from a seeded torch.Generator;
+7. training slice: launch counters reset, 24 steps of
+   Trainer.training_step -> LoG.training_iteration cycling the 4 views with
+   a random background (steps 21-24 run the per-view gain), each timed with
+   torch.cuda.synchronize(); K2 must launch once per step, K1 at least twice;
+8. training checks: K2 against its plain version on step 0's own inputs;
+   step 0 replayed from its saved inputs with every kernel swapped for its
+   plain version (same loss, same per-gaussian gradients, read from the
+   first Adam moments); every parameter and moment finite after each step;
+   the loss of the last 4 steps below that of the first 4; the counters
+   filled on the kept rows.
+With --profile, 4 more training steps run under torch.profiler and the
+device time by kernel goes to build/train_profile.txt.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -75,6 +92,18 @@ K1_MISMATCH = 1e-2  # share of pixels / pairs whose argmax id or weight differ
 FRAME_MAX_ABS = 2.0 / 255.0 + 1e-6  # after 8-bit quantization
 ORACLE_MAX_ABS = 2e-2
 ORACLE_MEAN_ABS = 1e-3
+# training phases: 4 orbit views seen from higher and closer than the
+# serving orbit, so that the ground fills every frame
+TRAIN_VIEWS, TRAIN_STEPS, BASE_ITER = 4, 24, 20
+TRAIN_RADIUS, TRAIN_HEIGHT = 14.0, 22.0
+PROFILE_STEPS = 4
+# K2 vs plain: per-pair gradients, max |kernel - plain| / max |plain|
+K2_REL_TOL = 1e-3
+# step 0 with the kernels vs with the plain versions: per-gaussian
+# gradients (first Adam moments) relative to the kernel step's largest,
+# and the loss
+STEP_GRAD_REL_TOL = 1e-3
+STEP_LOSS_TOL = 1e-4
 KERNEL_SOURCES = {
     "pack_rows": ("log_tpu_torch/csrc/pack.cu",
                   "log_tpu/ops/rasterize_tiled.py:265"),
@@ -82,7 +111,10 @@ KERNEL_SOURCES = {
                          "log_tpu/ops/expand_pallas.py:65"),
     "rasterize_fwd": ("log_tpu_torch/csrc/rasterize_fwd.cu",
                       "log_tpu/ops/rasterize_tiled.py:793"),
+    "rasterize_bwd": ("log_tpu_torch/csrc/rasterize_bwd.cu",
+                      "log_tpu/ops/rasterize_tiled.py:1370"),
 }
+SERVING_KERNELS = ("pack_rows", "expand_with_keys", "rasterize_fwd")
 
 
 def make_cam(theta, height=18.0, radius=22.0, h=H, w=W, focal=1400.0):
@@ -136,32 +168,47 @@ def patched(module, replacements):
             setattr(module, name, fn)
 
 
+@contextlib.contextmanager
 def plain_versions():
+    """Every kernel wrapper replaced by its plain torch version (the
+    autograd functions around them look the wrappers up at call time)."""
+    from log_tpu_torch.ops import expand as ex
     from log_tpu_torch.ops import rasterize_tiled as rt
-    from log_tpu_torch.ops.expand import expand_with_keys_plain
 
-    return patched(rt, {"pack_rows": rt.pack_rows_plain,
-                        "expand_with_keys": expand_with_keys_plain,
-                        "rasterize_forward": rt.rasterize_forward_plain})
+    with patched(ex, {"expand_with_keys": ex.expand_with_keys_plain}), \
+            patched(rt, {"pack_rows": rt.pack_rows_plain,
+                         "rasterize_forward": rt.rasterize_forward_plain,
+                         "rasterize_backward": rt.rasterize_backward_plain}):
+        yield
+
+
+@contextlib.contextmanager
+def recording(calls):
+    """Record the arguments of every kernel wrapper call into calls[name]."""
+    from log_tpu_torch.ops import expand as ex
+    from log_tpu_torch.ops import rasterize_tiled as rt
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            calls.setdefault(name, []).append((args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    with patched(ex, {"expand_with_keys": recorder("expand_with_keys",
+                                                   ex.expand_with_keys)}), \
+            patched(rt, {
+                "pack_rows": recorder("pack_rows", rt.pack_rows),
+                "rasterize_forward": recorder("rasterize_fwd",
+                                              rt.rasterize_forward),
+                "rasterize_backward": recorder("rasterize_bwd",
+                                               rt.rasterize_backward),
+            }):
+        yield calls
 
 
 def record_kernel_inputs(model, renderer, batch):
     """Render one frame, recording the arguments of every kernel call."""
-    from log_tpu_torch.ops import rasterize_tiled as rt
-
-    calls = {"pack_rows": [], "expand_with_keys": [], "rasterize_fwd": []}
-
-    def recorder(name, fn):
-        def call(*args, **kwargs):
-            calls[name].append((args, kwargs))
-            return fn(*args, **kwargs)
-        return call
-
-    with patched(rt, {
-        "pack_rows": recorder("pack_rows", rt.pack_rows),
-        "expand_with_keys": recorder("expand_with_keys", rt.expand_with_keys),
-        "rasterize_forward": recorder("rasterize_fwd", rt.rasterize_forward),
-    }):
+    with recording({}) as calls:
         renderer.vis(batch, model)
     return calls
 
@@ -329,6 +376,261 @@ def oracle_check(device, log):
     return float(d.max()), float(d.mean())
 
 
+# --------------------------------------------------------------- training
+def build_train_model(device, n_roots=N_ROOTS):
+    """The synthetic tree as a fresh training checkpoint (zero Adam moments
+    at global step 0, the counter's radius bounds) loaded for training."""
+    from log_tpu_torch.utils.config import load_object
+    from log_tpu_torch.utils.synth_tree import build_checkpoint
+
+    ckpt = build_checkpoint(n_roots, seed=SEED)
+    for key in MODEL_ARGS["optimizer"]["optimize_keys"]:
+        for mk in ("exp_avg", "exp_avg_sq"):
+            ckpt[f"optimizer.{mk}.{key}"] = np.zeros_like(
+                ckpt[f"gaussian.{key}"])
+    ckpt["optimizer.global_steps"] = np.float32(0)
+    model = load_object("LoG.model.level_of_gaussian.LoG", MODEL_ARGS,
+                        device=device)
+    model.base_iter = BASE_ITER
+    model.view_correction.init(TRAIN_VIEWS)  # what the init pass sets up
+    model.load_state_dict(ckpt, split="train")
+    model.set_state(enable_sh=True)
+    model.set_stage("tree")
+    model.training_setup()
+    return model
+
+
+def train_batches(h=H, w=W, focal=1400.0):
+    from log_tpu_torch.dataset.base import prepare_camera
+
+    batches = []
+    for i in range(TRAIN_VIEWS):
+        pc = prepare_camera(make_cam(2 * math.pi * i / TRAIN_VIEWS + 0.3,
+                                     height=TRAIN_HEIGHT, radius=TRAIN_RADIUS,
+                                     h=h, w=w, focal=focal), 1, 0.01, 1000.0)
+        batches.append({"camera": {k: np.asarray(pc[k])[None]
+                                   for k in CAMERA_KEYS},
+                        "index": np.asarray([i])})
+    return batches
+
+
+def make_ground_truth(model, batches, device, log):
+    """8-bit GT frames of the unperturbed tree (render_fused), put into the
+    batches as data["image"] (B, H, W, 3); then the colors and opacities of
+    the live points are perturbed from a seeded generator."""
+    import torch
+
+    model.eval()
+    for b in batches:
+        camera = {k: np.asarray(v)[0] for k, v in b["camera"].items()}
+        out = model.render_fused(camera, np.zeros(3, np.float32))
+        img8 = (torch.clamp(out["render"], 0, 1) * 255).to(torch.uint8)
+        b["image"] = img8.permute(1, 2, 0).cpu().numpy()[None]
+        log(f"GT view {int(b['index'][0])}: alpha mean "
+            f"{float(out['alpha'].mean()):.4f}, pixel mean "
+            f"{float(img8.float().mean()) / 255:.4f}")
+    model.train()
+    n = model.num_points
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    for key, scale, shift in (("colors", 0.3, 0.0), ("opacity", 0.5, -0.5)):
+        val = model.gaussian.get(key)
+        noise = torch.randn(val.shape, generator=g, device=device) * scale
+        noise[n:] = 0.0
+        noise[:n] += shift
+        model.gaussian.set(key, val + noise)
+
+
+def _finite(*dicts):
+    import torch
+
+    flags = [torch.isfinite(v).all() for d in dicts for v in d.values()]
+    return bool(torch.stack(flags).all())
+
+
+def run_train_slice(model, batches, device, log):
+    """TRAIN_STEPS steps of Trainer.training_step; step 0 records its kernel
+    calls and its fused_train_step arguments."""
+    import torch
+
+    from log_tpu_torch.model import level_of_gaussian as lg
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+    from log_tpu_torch.utils.trainer import Trainer
+
+    renderer = NaiveRendererAndLoss(split="train", use_randback=True,
+                                    device=device)
+    trainer = Trainer({}, model, renderer, seed=SEED)
+    step0 = {"calls": {}, "step": []}
+    real_step = lg.fused_train_step
+
+    def record_step(*args, **kwargs):
+        step0["step"].append((args, kwargs))
+        return real_step(*args, **kwargs)
+
+    steps, finite_fail = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    for i in range(TRAIN_STEPS):
+        batch = batches[i % TRAIN_VIEWS]
+        use_corr = model.optimizer.global_steps >= model.base_iter
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            with recording(step0["calls"]), \
+                    patched(lg, {"fused_train_step": record_step}):
+                _ok, out, _ = trainer.training_step(model, batch)
+        else:
+            _ok, out, _ = trainer.training_step(model, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        trainer.global_iterations += 1
+        met = out["metrics"]
+        steps.append({
+            "step": i, "ms": ms, "view": i % TRAIN_VIEWS,
+            "loss": float(met["loss"]), "l1": float(met["l1"]),
+            "ssim": float(met["ssim"]), "correction": bool(use_corr),
+            "bucket": list(model._bucket),
+            "pair_demand": int(met["pair_total"]),
+            "rendered": int(met["num_rendered"]),
+        })
+        if not _finite(model.gaussian.params(), model.optimizer.moments["exp_avg"],
+                       model.optimizer.moments["exp_avg_sq"]):
+            finite_fail.append(i)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log("train: per-step ms " + " ".join(f"{s['ms']:.1f}" for s in steps))
+    log("train: loss " + " ".join(f"{s['loss']:.4f}" for s in steps))
+    log("train: bucket " + " ".join(f"{s['bucket'][0]}+{s['bucket'][1]}"
+                                    for s in steps))
+    log("train: pair demand " + " ".join(str(s["pair_demand"])
+                                         for s in steps))
+    return steps, launches, peak, finite_fail, step0, trainer
+
+
+def compare_k2(calls, log):
+    """K2 against its plain version on step 0's own K2 inputs."""
+    import torch
+
+    from log_tpu_torch.ops import rasterize_tiled as rt
+
+    args, kw = calls["rasterize_bwd"][0]
+    with torch.no_grad():  # the saved pair array requires grad
+        k = rt.rasterize_backward(*args, **kw)
+        p = rt.rasterize_backward_plain(*args, **kw)
+        scale = float(p[:9].abs().max())
+        err = float((k[:9] - p[:9]).abs().max())
+        tail_zero = float(k[9:].abs().max()) == 0.0
+        ms = device_ms(lambda: rt.rasterize_backward(*args, **kw), 10)
+        pms = device_ms(lambda: rt.rasterize_backward_plain(*args, **kw), 2)
+    cend = args[3]
+    log(f"K2 rasterize_bwd  pairs={args[0].shape[1]} tiles={cend.numel()} "
+        f"chunks walked={int(cend.sum())}: max_abs={err:.3g} "
+        f"(max |plain| {scale:.3g}, rel {err / max(scale, 1e-30):.3g}) "
+        f"rows 9-15 zero={tail_zero}; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    fails = []
+    if not (scale > 0 and err <= K2_REL_TOL * scale and tail_zero):
+        fails.append("K2 rasterize_bwd disagrees with plain")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}, fails
+
+
+def replay_step0(step0, log):
+    """Step 0 again from its recorded inputs (the step is functional, so
+    they are the pre-step state): once through the kernels, once through
+    the plain versions. The first Adam moments after one step from zero are
+    0.1 g, so they carry the per-gaussian gradients."""
+    import torch
+
+    from log_tpu_torch.model.train_step import fused_train_step
+
+    args, kw = step0["step"][0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_k = fused_train_step(*args, **kw)
+    torch.cuda.synchronize()
+    k_ms = (time.perf_counter() - t0) * 1e3
+    with plain_versions():
+        t0 = time.perf_counter()
+        out_p = fused_train_step(*args, **kw)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+    d_loss = abs(float(out_k[4]["loss"]) - float(out_p[4]["loss"]))
+    worst = 0.0
+    for key, m_k in out_k[1]["exp_avg"].items():
+        m_p = out_p[1]["exp_avg"][key]
+        rel = float((m_k - m_p).abs().max()) / max(float(m_k.abs().max()),
+                                                   1e-30)
+        worst = max(worst, rel)
+        log(f"step 0 plain vs kernels: {key:9s} grad rel err {rel:.3g}")
+    log(f"step 0 plain vs kernels: loss {float(out_k[4]['loss']):.6f} vs "
+        f"{float(out_p[4]['loss']):.6f} (|d| {d_loss:.3g}); step "
+        f"{k_ms:.1f} ms with kernels, {p_ms:.1f} ms plain")
+    fails = []
+    if d_loss > STEP_LOSS_TOL or worst > STEP_GRAD_REL_TOL:
+        fails.append(f"step 0 with plain versions differs: loss {d_loss}, "
+                     f"grad rel {worst}")
+    return {"loss_abs_diff": d_loss, "grad_rel_err": worst,
+            "kernel_step_ms": k_ms, "plain_step_ms": p_ms}, fails
+
+
+def profile_steps(model, trainer, batches, step_ms, log):
+    """PROFILE_STEPS more steps under torch.profiler. Device time per step
+    by kernel and by the step's labelled ranges (record_function), against
+    step_ms, the median un-profiled step; the full table goes to
+    build/train_profile.txt."""
+    import os
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(PROFILE_STEPS):
+            trainer.training_step(model, batches[i % TRAIN_VIEWS])
+            trainer.global_iterations += 1
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+
+    def dev_ms(e):  # per step
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        return us / 1e3 / PROFILE_STEPS
+
+    # the step's record_function ranges also appear on the device side (as
+    # spans); they are not kernels
+    kernels_ = [e for e in avgs if e.device_type == DeviceType.CUDA
+                and not e.key.startswith("train_step.")]
+    busy = sum(dev_ms(e) for e in kernels_)
+    os.makedirs("build", exist_ok=True)
+    with open("build/train_profile.txt", "w") as f:
+        f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=80))
+    log(f"profile: {PROFILE_STEPS} steps, device busy {busy:.3f} ms per step "
+        f"(sum of kernel time) against a median step of {step_ms:.3f} ms "
+        f"un-profiled: busy {100 * busy / step_ms:.1f}%, idle "
+        f"{100 * (1 - busy / step_ms):.1f}%")
+    for e in sorted(kernels_, key=dev_ms, reverse=True)[:20]:
+        log(f"  kernel {dev_ms(e):8.3f} ms/step {e.count // PROFILE_STEPS:5d}x "
+            f"{e.key[:100]}")
+    # host-side ranges: the device time of the kernels launched inside
+    # them (the backward's kernels run on autograd's thread, outside);
+    # device-side ranges: their span on the device timeline
+    for e in sorted(avgs, key=lambda e: (e.key, str(e.device_type))):
+        if e.key.startswith("train_step.") or e.key in (
+                "aten::sort", "aten::scatter_reduce_", "aten::cumsum"):
+            if e.device_type == DeviceType.CUDA:
+                what, ms = "span", dev_ms(e)
+            else:
+                dev = getattr(e, "device_time_total", None)
+                if dev is None:
+                    dev = e.cuda_time_total
+                what, ms = "kernels", dev / 1e3 / PROFILE_STEPS
+            log(f"  {e.key:28s} {what:7s} {ms:8.3f} ms/step "
+                f"{e.count // PROFILE_STEPS:5d}x")
+
+
 def main() -> int:
     import torch
 
@@ -379,9 +681,10 @@ def main() -> int:
         f"slice bucket {last['k_visible']}, pair demand "
         f"{last['pair_total']} (budget {last['max_pairs']}); peak memory "
         f"{peak / 2**30:.3f} GiB; launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            failures.append(f"kernel {name} never launched on the main path")
+    for name in SERVING_KERNELS:
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} never launched on the serving "
+                            f"path")
 
     img = np.stack(renders)
     if img.shape != (FRAMES, 3, H, W) or not np.isfinite(img).all():
@@ -406,18 +709,87 @@ def main() -> int:
     o_max, o_mean = oracle_check(device, log)
     if o_max > ORACLE_MAX_ABS or o_mean > ORACLE_MEAN_ABS:
         failures.append(f"small tree disagrees with the oracle: {o_max}")
+    slice_json = {"frame_ms_mean": float(np.mean(frame_ms)),
+                  "frame_ms": frame_ms, "plain_frame_ms": plain_ms,
+                  "frames": telemetry, "peak_bytes": peak, "build_s": build_s}
+    del model, renders, img, plain, kern
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- training
+    t0 = time.perf_counter()
+    model = build_train_model(device)
+    batches = train_batches()
+    make_ground_truth(model, batches, device, log)
+    torch.cuda.synchronize()
+    log(f"train setup: {model.num_points} points, base_iter "
+        f"{model.base_iter}, {TRAIN_VIEWS} views, "
+        f"{time.perf_counter() - t0:.2f} s")
+    steps, t_launches, t_peak, finite_fail, step0, trainer = run_train_slice(
+        model, batches, device, log)
+    step_ms = [s["ms"] for s in steps[1:]]
+    log(f"train: step ms median {np.median(step_ms):.3f} (min "
+        f"{np.min(step_ms):.3f}, max {np.max(step_ms):.3f}) over "
+        f"{len(step_ms)} steps after step 0 ({steps[0]['ms']:.1f} ms); peak "
+        f"memory {t_peak / 2**30:.3f} GiB; launches {t_launches}")
+    if finite_fail:
+        failures.append(f"non-finite parameters or moments after steps "
+                        f"{finite_fail}")
+    if t_launches["rasterize_bwd"] != TRAIN_STEPS:
+        failures.append(f"K2 launched {t_launches['rasterize_bwd']} times in "
+                        f"{TRAIN_STEPS} steps")
+    if t_launches["rasterize_fwd"] < 2 * TRAIN_STEPS:
+        failures.append("K1 launched fewer than twice per step")
+    for name in ("pack_rows", "expand_with_keys"):
+        if t_launches[name] < TRAIN_STEPS:
+            failures.append(f"kernel {name} not launched in every step")
+    first = float(np.mean([s["loss"] for s in steps[:TRAIN_VIEWS]]))
+    last = float(np.mean([s["loss"] for s in steps[-TRAIN_VIEWS:]]))
+    log(f"train: mean loss first {TRAIN_VIEWS} steps {first:.5f}, last "
+        f"{TRAIN_VIEWS} {last:.5f}")
+    if not last < first:
+        failures.append(f"loss did not fall: {first} -> {last}")
+    corr = [s["correction"] for s in steps]
+    want_corr = [i >= BASE_ITER for i in range(TRAIN_STEPS)]
+    gains = model._corr_dev["values"] if model._corr_dev is not None else None
+    if corr != want_corr or gains is None or bool((gains == 1.0).all()):
+        failures.append("the per-view gain did not run from base_iter on")
+    else:
+        log(f"view gains after training: {gains.cpu().numpy().round(4).tolist()}")
+    keep = model.visibility_flag["keep_mask"]
+    vis_share = float((model.counter.data["visible_count"][keep] > 0)
+                      .float().mean())
+    area_share = float((model.counter.data["area_sum"][keep] > 0)
+                       .float().mean())
+    log(f"counters on the last step's {int(keep.sum())} kept rows: "
+        f"visible_count > 0 on {vis_share:.4f}, area_sum > 0 on "
+        f"{area_share:.4f}")
+    if vis_share < 0.95 or area_share <= 0.0:
+        failures.append("counters not filled on the kept rows")
+    rows["rasterize_bwd"], kfail = compare_k2(step0["calls"], log)
+    failures += kfail
+    replay, sfail = replay_step0(step0, log)
+    failures += sfail
+    del step0
+    if "--profile" in sys.argv[1:]:
+        profile_steps(model, trainer, batches, float(np.median(step_ms)), log)
 
     log(json.dumps({
-        "slice": {"frame_ms_mean": float(np.mean(frame_ms)),
-                  "frame_ms": frame_ms, "plain_frame_ms": plain_ms,
-                  "frames": telemetry, "peak_bytes": peak,
-                  "build_s": build_s}
+        "slice": slice_json,
+        "train": {"step_ms_median": float(np.median(step_ms)),
+                  "step_ms_min": float(np.min(step_ms)),
+                  "step_ms_max": float(np.max(step_ms)),
+                  "steps": steps, "peak_bytes": t_peak,
+                  "launches": t_launches, "step0_replay": replay},
     }))
     kernels_json = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
+        serve_n = launches.get(name, 0) if name in SERVING_KERNELS else 0
         kernels_json.append({"name": name, "route": "cuda", "source": src,
                              "replaces": replaces,
-                             "launches": launches[name], **rows[name]})
+                             "launches": serve_n + t_launches[name],
+                             "launches_serve": serve_n,
+                             "launches_train": t_launches[name],
+                             **rows[name]})
     if failures:
         for f in failures:
             print("FAIL: " + f, file=sys.stderr)

@@ -45,6 +45,18 @@ constexpr float kAlphaMin = (float)(1.0 / 255.0);
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = (float)1e-4;
 
+// -0.5 (cxx dx^2 + cyy dy^2) - cxy dx dy, every product and sum rounded on
+// its own (no FMA contraction) in the plain version's order: the alpha
+// gates (power <= 0, alpha >= 1/255) then decide exactly as in the plain
+// torch version and in K2, which recomputes them.
+__device__ __forceinline__ float splat_power(float dx, float dy, float cxx,
+                                             float cxy, float cyy) {
+  const float pxx = __fmul_rn(__fmul_rn(cxx, dx), dx);
+  const float pyy = __fmul_rn(__fmul_rn(cyy, dy), dy);
+  const float pxy = __fmul_rn(__fmul_rn(cxy, dx), dy);
+  return __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(pxx, pyy)), pxy);
+}
+
 template <int STATS>
 __global__ void __launch_bounds__(kTilePix)
 rasterize_fwd_kernel(const float* __restrict__ pair, long long pstride,
@@ -97,12 +109,11 @@ rasterize_fwd_kernel(const float* __restrict__ pair, long long pstride,
     for (int k = lo; k < hi; ++k) {
       const float dx = s_rec[0][k] - fx;
       const float dy = s_rec[1][k] - fy;
-      const float power =
-          -0.5f * (s_rec[2][k] * dx * dx + s_rec[4][k] * dy * dy) -
-          s_rec[3][k] * dx * dy;
+      const float power = splat_power(dx, dy, s_rec[2][k], s_rec[3][k],
+                                      s_rec[4][k]);
       float alpha = 0.f;
       if (power <= 0.f) {
-        alpha = fminf(kAlphaMax, s_rec[5][k] * expf(power));
+        alpha = fminf(kAlphaMax, __fmul_rn(s_rec[5][k], expf(power)));
         if (!(alpha >= kAlphaMin)) alpha = 0.f;
       }
       const float t_after = T * (1.f - alpha);

@@ -1,5 +1,5 @@
-"""Gaussian point state: capacity-padded device tensors; serving half of
-log_tpu/model/gaussian.py.
+"""Gaussian point state: capacity-padded device tensors; storage and the SH
+schedule of log_tpu/model/gaussian.py (point-cloud init: ROADMAP queue 1.2b).
 
 The point axis is padded to a quantized capacity (powers of two with one
 midpoint per octave) and carries a `num_points` alive count. The JAX package
@@ -45,7 +45,7 @@ class GaussianPoint:
         if init_ply is not None:
             raise NotImplementedError(
                 "point-cloud initialization belongs to the training slice "
-                "(ROADMAP queue 1); load a checkpoint instead"
+                "(ROADMAP queue 1.2b); load a checkpoint instead"
             )
         self.device = torch.device(device)
         self.xyz_scale = xyz_scale
@@ -59,6 +59,11 @@ class GaussianPoint:
 
     def get(self, key):
         return self._data[key]
+
+    def set(self, key, value):
+        """Replace one capacity-padded parameter tensor (the train step's
+        write-back)."""
+        self._data[key] = value
 
     def params(self) -> dict:
         """Capacity-padded param dict."""
@@ -78,3 +83,9 @@ class GaussianPoint:
         keys = keys or self.keys
         return {k: self._data[k][: self.num_points].cpu().numpy()
                 for k in keys}
+
+    def oneupSHdegree(self) -> None:
+        if self.active_sh_degree < self.max_sh_degree:
+            self.active_sh_degree += 1
+            print(f"[{self.__class__.__name__}] one up SH degree to "
+                  f"{self.active_sh_degree}")

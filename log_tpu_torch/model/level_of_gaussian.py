@@ -1,11 +1,13 @@
-"""LoG: the level-of-Gaussians model; serving half of
+"""LoG: the level-of-Gaussians model; counterpart of
 log_tpu/model/level_of_gaussian.py.
 
-Owns the point store and the LoD tree, the device caches the per-frame cut
+Owns the point store and the LoD tree, the densification counters, the
+sparse optimizer and the per-view gain, the device caches the per-frame cut
 reads (tree arrays, parent-attribute cache), checkpoint (de)serialization
-with the reference's key names, and the inference frame `render_fused`.
-Training (train_step, densification, optimizer, counters) is the next slice
-of the port (ROADMAP queue 1).
+with the reference's key names, the training step (`train_step`,
+`training_iteration`) and the inference frame `render_fused`.
+Densification and its schedule (`update_by_iteration`) are ROADMAP
+queue 1.2b.
 """
 from __future__ import annotations
 
@@ -13,30 +15,47 @@ import numpy as np
 import torch
 
 from ..ops import pick_backend, pick_max_pairs
+from .corrector import Corrector
+from .counter import Counter
 from .gaussian import GaussianPoint, next_capacity
+from .sparse_optimizer import SparseOptimizer
 from .tensor_tree import TensorTree
-from .train_step import fused_prepare_render, prepare_visibility
-
-# checkpoint key prefixes of training state, which the serving port skips
-_TRAINING_KEYS = ("counter.", "optimizer.", "view_correction.")
+from .train_step import (StepConfig, fused_prepare_render,
+                         fused_prepare_train_step, fused_train_step,
+                         prepare_visibility)
 
 
 class LoG:
     def __init__(self, gaussian: dict, tree: dict, optimizer: dict,
                  densify_and_remove: dict, use_view_correction: bool = False,
                  check_render_scale: int = 1, device="cuda"):
-        # densify_and_remove and use_view_correction configure training;
-        # they are accepted so that the YAML model args load unchanged
+        # densify_and_remove configures densification (ROADMAP queue
+        # 1.2b); it is kept so that the YAML model args load unchanged
         self.device = torch.device(device)
         self.optimizer_cfg = dict(optimizer)
+        self.densify_and_remove = dict(densify_and_remove)
         self.gaussian = GaussianPoint(**gaussian, device=self.device)
         self.tree = TensorTree(**tree)
+        self.counter = Counter(self.gaussian.capacity, device=self.device)
+        self.use_view_correction = use_view_correction
+        self.view_correction = (Corrector(use_view_correction)
+                                if use_view_correction else None)
         self.check_render_scale = check_render_scale
         self.current_depth = 0
         self.training = True
+        self.stage_name = "init"
+        self.base_iter = 1
+        self.optimizer: SparseOptimizer | None = None
+        self.lr = 0.0
         self.visibility_flag = None
         self._tree_dev = None
         self._leaf_opt_dev = None
+        # the lagged (k_leaf, k_node) bucket of training_iteration and the
+        # last step's device-side counts it is refreshed from
+        self._bucket = None
+        self._counts_dev = None
+        # per-view gain Adam state, device-resident across steps
+        self._corr_dev = None
         # static buckets of the inference frame and the last frame's
         # device-side counts they are sized from (see render_fused)
         self._render_bucket = None
@@ -57,6 +76,11 @@ class LoG:
 
     def eval(self):
         self.training = False
+
+    def set_stage(self, stage_name: str):
+        self.stage_name = stage_name
+        self._bucket = None
+        self._counts_dev = None
 
     def set_state(self, active_sh_degree=None, enable_sh=None,
                   min_resolution_pixel=None, current_depth=None,
@@ -183,6 +207,212 @@ class LoG:
         }
         return self.visibility_flag
 
+    # ----------------------------------------------------- training setup
+    def training_setup(self):
+        if self.optimizer is not None:
+            print(f"[{self.__class__.__name__}] optimizer is already setup")
+            self.counter.reset(self.num_points, self.capacity)
+            return 0
+        cfg = dict(self.optimizer_cfg)
+        lr_dict = dict(cfg["lr_dict"])
+        lr_dict["max_steps"] = int(lr_dict["max_steps"]) * self.base_iter
+        self.optimizer = SparseOptimizer(cfg["optimize_keys"], lr_dict,
+                                         self.gaussian,
+                                         xyz_scale=self.gaussian.xyz_scale)
+        print(f"[{self.__class__.__name__}] optimizer setup: max steps = "
+              f"{lr_dict['max_steps']}")
+        self.lr = lr_dict["xyz"]
+        self.counter.reset(self.num_points, self.capacity)
+        if self.view_correction is not None:
+            self.view_correction.training_setup()
+
+    # ------------------------------------------------------- training step
+    def _step_config(self, cam: dict, k_leaf: int, k_node: int, mask_ignore,
+                     render_depth: bool, fg_mask) -> StepConfig:
+        k_total = k_leaf + k_node
+        return StepConfig(
+            image_height=cam["image_height"], image_width=cam["image_width"],
+            k_leaf=k_leaf, k_node=k_node,
+            sh_degree=self.gaussian.active_sh_degree, mode="antialias",
+            # the per-view gain is applied and stepped only from base_iter
+            # on; before that it is 1.0
+            use_correction=(
+                self.view_correction is not None
+                and self.view_correction.values.shape[0] > 0
+                and self.optimizer.global_steps >= self.base_iter
+            ),
+            has_mask=mask_ignore is not None,
+            opt_keys=tuple(self.gaussian.keys),
+            backend=pick_backend(k_total, self.device),
+            max_pairs=pick_max_pairs(k_total),
+            render_depth=render_depth, crop_loss=fg_mask is not None,
+            spilled=self.optimizer.spilled,
+        )
+
+    def _step_inputs(self, cam: dict, cfg: StepConfig, gt_image, background,
+                     mask_ignore, fg_mask) -> dict:
+        """Device inputs of one step; advances the optimizer's step count
+        and the LR schedule."""
+        dev = self.device
+        self.optimizer.global_steps += 1
+        step = self.optimizer.global_steps
+        host_lrs = _host_lrs(self.optimizer, step)
+        self.lr = host_lrs.get("xyz", 0.0)
+        if cfg.use_correction:
+            corr_state = self._corr_device_state()
+        else:
+            corr_state = {
+                "values": torch.ones((1, 3), device=dev),
+                "m1": torch.zeros((1, 3), device=dev),
+                "m2": torch.zeros((1, 3), device=dev),
+                "vmax": torch.zeros((1, 3), device=dev),
+                "steps": torch.zeros((1,), dtype=torch.int32, device=dev),
+            }
+        fg_dev = bbox = None
+        if fg_mask is not None:
+            fg_dev, bbox = _fg_mask_bbox(fg_mask, cam["image_height"],
+                                         cam["image_width"], dev)
+        return dict(
+            gt=torch.as_tensor(gt_image, device=dev),
+            background=torch.as_tensor(np.asarray(background, np.float32),
+                                       device=dev),
+            lrs=host_lrs, global_step=float(step), corr_state=corr_state,
+            mask_ignore=(torch.as_tensor(mask_ignore, device=dev)[None]
+                         if mask_ignore is not None
+                         else torch.ones((1, 1, 1), device=dev)),
+            gt_depth=None, fg_mask=fg_dev, bbox=bbox,
+        )
+
+    def _apply_step(self, cfg: StepConfig, params, moments, counter,
+                    corr_state):
+        for key, val in params.items():
+            self.gaussian.set(key, val)
+        self.optimizer.moments = moments
+        self.counter.data = counter
+        if cfg.use_correction:
+            self._corr_dev = corr_state
+
+    def train_step(self, camera: dict, gt_image, background, mask_ignore=None,
+                   view_index: int = 0, gt_depth=None, render_depth=False,
+                   fg_mask=None):
+        """One optimization step on the cut of the last prepare_from_camera.
+        Returns (metrics, aux) of device tensors."""
+        from ..render.renderer import camera_device
+
+        if self.visibility_flag is None or "k_leaf" not in self.visibility_flag:
+            raise RuntimeError("call prepare_from_camera first")
+        if self.optimizer is None:
+            raise RuntimeError("call training_setup first")
+        vf = self.visibility_flag
+        cam = camera_device(camera, self.device)
+        cfg = self._step_config(cam, vf["k_leaf"], vf["k_node"], mask_ignore,
+                                render_depth and gt_depth is not None,
+                                fg_mask)
+        inputs = self._step_inputs(cam, cfg, gt_image, background,
+                                   mask_ignore, fg_mask)
+        params, moments, counter, corr_state, metrics, aux = fused_train_step(
+            self.gaussian.params(), self.optimizer.moments, self.counter.data,
+            vf["keep_leaf"], vf["keep_node"], cam, view_index=view_index,
+            cfg=cfg, **inputs,
+        )
+        self._apply_step(cfg, params, moments, counter, corr_state)
+        return metrics, aux
+
+    def training_iteration(self, camera: dict, gt_image, background,
+                           mask_ignore=None, view_index: int = 0,
+                           gt_depth=None, render_depth: bool = False,
+                           fg_mask=None):
+        """One training step with the visibility pass in front of it.
+
+        The slice bucket lags one step behind the visible counts (temporal
+        coherence of consecutive training cameras): it grows when the last
+        step's count outgrew it and shrinks when that count fell below half.
+        The first step of a stage seeds it with a standalone prepare.
+        """
+        from ..render.renderer import camera_device
+
+        if self._bucket is None:
+            vf = self.prepare_from_camera(camera)
+            self._bucket = (vf["k_leaf"], vf["k_node"])
+            return self.train_step(
+                camera, gt_image, background, mask_ignore=mask_ignore,
+                view_index=view_index, gt_depth=gt_depth,
+                render_depth=render_depth, fg_mask=fg_mask,
+            )
+        if self._counts_dev is not None:
+            c = self._counts_dev.cpu().numpy()
+            k_leaf = next_capacity(int(c[0]), 256)
+            k_node = 0 if int(c[1]) == 0 else next_capacity(int(c[1]), 256)
+            bl, bn = self._bucket
+            if k_leaf > bl or k_leaf * 2 < bl:
+                bl = k_leaf
+            if k_node > bn or k_node * 2 < bn:
+                bn = k_node
+            self._bucket = (bl, bn)
+        if self.optimizer is None:
+            raise RuntimeError("call training_setup first")
+        cam = camera_device(camera, self.device)
+        stage_has_tree = self.tree.num_nodes > 0
+        if stage_has_tree and self._tree_dev is None:
+            self._refresh_device_caches()
+        tree_arrays, num_levels = self._tree_args(stage_has_tree)
+        leaf_opt = (self._leaf_opt_dev if stage_has_tree else
+                    torch.zeros(self.capacity, dtype=torch.bool,
+                                device=self.device))
+        k_leaf, k_node = self._bucket
+        cfg = self._step_config(cam, k_leaf, k_node, mask_ignore,
+                                render_depth and gt_depth is not None,
+                                fg_mask)
+        inputs = self._step_inputs(cam, cfg, gt_image, background,
+                                   mask_ignore, fg_mask)
+        params, moments, counter, corr_state, metrics, aux = (
+            fused_prepare_train_step(
+                self.gaussian.params(), self.optimizer.moments,
+                self.counter.data, tree_arrays, self.num_points, leaf_opt,
+                float(self.tree.min_resolution_pixel), self.current_depth,
+                cam, view_index=view_index, stage_has_tree=stage_has_tree,
+                num_levels=num_levels,
+                prep_backend=pick_backend(self.capacity, self.device),
+                prep_max_pairs=pick_max_pairs(self.capacity),
+                check_scale=int(self.check_render_scale), cfg=cfg,
+                cut_method=(self.cut_method_train if stage_has_tree
+                            else "traverse"),
+                n_roots=self.n_roots_bucket if stage_has_tree else 0,
+                **inputs,
+            )
+        )
+        self._apply_step(cfg, params, moments, counter, corr_state)
+        self._counts_dev = metrics["counts"]
+        self.visibility_flag = {"keep_mask": aux["keep_mask"]}
+        return metrics, aux
+
+    def _corr_device_state(self) -> dict:
+        """The per-view gain Adam state on the device (built from the host
+        Corrector on first use)."""
+        if self._corr_dev is None:
+            c = self.view_correction
+            if not c._setup:
+                c.training_setup()
+            dev = self.device
+
+            def t(a, dtype=torch.float32):
+                return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+            self._corr_dev = {
+                "values": t(c.values), "m1": t(c.exp_avg),
+                "m2": t(c.exp_avg_sq), "vmax": t(c.max_exp_avg_sq),
+                "steps": t(c.steps, torch.int32),
+            }
+        return self._corr_dev
+
+    def _sync_corrector_to_host(self):
+        if self._corr_dev is not None:
+            c = self.view_correction
+            d = {k: v.cpu().numpy() for k, v in self._corr_dev.items()}
+            c.values, c.exp_avg, c.exp_avg_sq = d["values"], d["m1"], d["m2"]
+            c.max_exp_avg_sq = d["vmax"]
+            c.steps = d["steps"].astype(np.int64)
+
     @torch.no_grad()
     def render_fused(self, camera: dict, background):
         """Inference frame: cut + compaction + render. Returns a dict of
@@ -265,44 +495,99 @@ class LoG:
 
     # ----------------------------------------------------------- checkpoint
     def state_dict(self) -> dict:
-        """Flat numpy dict with the reference's key names."""
+        """Flat numpy dict with the reference's key names: gaussian.*,
+        tree.*, counter.*, and with training state optimizer.* and
+        view_correction.*."""
+        n = self.num_points
         sd = {f"gaussian.{k}": v for k, v in self.gaussian.to_numpy().items()}
         sd["tree.root_index"] = self.tree.root_index
         sd["tree.tree"] = self.tree.tree
         for key in self.tree.KEYS:
             sd[f"tree.{key}"] = getattr(self.tree, key)
+        for key, val in self.counter.to_numpy(n).items():
+            sd[f"counter.{key}"] = val
+        if self.optimizer is not None:
+            sd["optimizer.global_steps"] = np.float32(
+                self.optimizer.global_steps)
+            for mk, moments in self.optimizer.to_numpy(n).items():
+                for key, val in moments.items():
+                    sd[f"optimizer.{mk}.{key}"] = val
+        if self.view_correction is not None:
+            self._sync_corrector_to_host()
+            sd["view_correction.view_correction"] = self.view_correction.values
         return sd
 
     def load_state_dict(self, state_dict, strict=True, split="demo"):
         """Shape-tolerant load of a checkpoint dict (numpy or tensors).
-        Training state (counter, optimizer moments, view correction) is
-        skipped: it belongs to the training slice."""
+        split="train" sets the optimizer up first and loads its moments and
+        step count; other splits skip the optimizer keys."""
         if split == "train":
-            raise NotImplementedError(
-                "loading for training is the next slice (ROADMAP queue 1)"
-            )
-        arrays = {}
+            self.training_setup()
+        arrays, counter_np = {}, {}
+        moments_np = {"exp_avg": {}, "exp_avg_sq": {}}
         for key, val in state_dict.items():
             if isinstance(val, torch.Tensor):
                 val = val.cpu().numpy()
             val = np.asarray(val)
+            if split != "train" and "optimizer" in key:
+                continue
             if key.startswith("gaussian."):
                 arrays[key.split(".", 1)[1]] = val
             elif key.startswith("tree."):
                 name = key.split(".", 1)[1]
                 if name in ("root_index", "tree") or name in self.tree.KEYS:
                     setattr(self.tree, name, val.astype(np.int32))
-            elif not key.startswith(_TRAINING_KEYS):
+            elif key.startswith("counter."):
+                counter_np[key.split(".", 1)[1]] = val
+            elif key == "optimizer.global_steps":
+                if self.optimizer is not None:
+                    self.optimizer.global_steps = float(val)
+            elif key.startswith("optimizer.exp_avg."):
+                moments_np["exp_avg"][key.rsplit(".", 1)[1]] = val
+            elif key.startswith("optimizer.exp_avg_sq."):
+                moments_np["exp_avg_sq"][key.rsplit(".", 1)[1]] = val
+            elif key == "view_correction.view_correction":
+                if self.view_correction is not None:
+                    self.view_correction.set_values(val)
+            else:
                 print(f"[LoG] skip unknown checkpoint key {key}")
         if arrays:
             self.gaussian.keys = [k for k in ["scaling", "colors", "xyz",
                                               "opacity", "rotation", "shs"]
                                   if k in arrays]
             self.gaussian.set_numpy(arrays)
+        if counter_np:
+            self.counter.set_numpy(counter_np, self.capacity)
+        if split == "train" and moments_np["exp_avg"]:
+            self.optimizer.moments = {"exp_avg": {}, "exp_avg_sq": {}}
+            self.optimizer.set_numpy(moments_np, self.capacity)
         if self.tree.num_nodes > 0:
             self.current_depth = int(self.tree.depth.max())
         self._render_bucket = None
         self._pair_bucket = None
         self._frame = None
+        self._corr_dev = None
         self._refresh_device_caches()
         return True
+
+
+def _fg_mask_bbox(fg_mask, H: int, W: int, device):
+    """The foreground mask on the device and its bbox with the reference's
+    training padding (max(H, W) / 50). Returns (uint8 mask (1, H, W),
+    host int bbox [top, bottom, left, right])."""
+    m = np.asarray(fg_mask).reshape(-1, W)[-H:] > 0.5
+    rows = np.where(m.any(axis=1))[0]
+    cols = np.where(m.any(axis=0))[0]
+    if rows.size == 0:
+        bbox = np.array([0, H - 1, 0, W - 1], np.int32)
+    else:
+        pad = int(max(H, W) / 50)
+        bbox = np.array([max(int(rows[0]) - pad, 0), int(rows[-1]) + pad,
+                         max(int(cols[0]) - pad, 0), int(cols[-1]) + pad],
+                        np.int32)
+    return torch.from_numpy(m.astype(np.uint8))[None].to(device), bbox
+
+
+def _host_lrs(optimizer: SparseOptimizer, step) -> dict:
+    """Per-key LR values (host floats) for this step."""
+    return optimizer.lrs_for_step(step)

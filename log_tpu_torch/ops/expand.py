@@ -6,6 +6,13 @@ ends at `length`. Each column gets a copy of its owner's rows and two sort
 keys decoded from the packed rect geometry. The CUDA kernel is
 csrc/expand.cu; `expand_with_keys_plain` is the same function in plain
 torch, used for CPU tensors and as the kernel's reference on the card.
+
+`ExpandWithKeys` is the differentiable form: the VJP of the value rows is
+the segment sum of each run's columns (the TPU package's `_pek_bwd`). The
+JAX package takes it as a difference of an f32 cumsum over all A columns,
+which at millions of pairs loses most of the precision of a small run's
+sum; here the cumsum runs in float64, so each segment sum keeps full f32
+precision, and the result is deterministic.
 """
 from __future__ import annotations
 
@@ -81,3 +88,30 @@ def expand_with_keys(vals, ints, total, length: int, tiles_x: int,
     kernels.check(rc, "expand_with_keys")
     kernels.LAUNCHES["expand_with_keys"] += 1
     return out_vals, out_ints, tile_key, depth_key
+
+
+class ExpandWithKeys(torch.autograd.Function):
+    """`expand_with_keys` with a VJP for the value rows: the gradient of run
+    i is the sum of its columns [offs[i], offs[i+1]) (the last run ends at
+    `length`). The int rows and the sort keys get no gradient."""
+
+    @staticmethod
+    def forward(ctx, vals, ints, total, length, tiles_x, num_tiles):
+        out_vals, out_ints, tile_key, depth_key = expand_with_keys(
+            vals, ints, total, length, tiles_x, num_tiles
+        )
+        ctx.save_for_backward(ints[0])
+        ctx.length = int(length)
+        ctx.mark_non_differentiable(out_ints, tile_key, depth_key)
+        return out_vals, out_ints, tile_key, depth_key
+
+    @staticmethod
+    def backward(ctx, g_vals, *_):
+        (offs,) = ctx.saved_tensors
+        length = ctx.length
+        offs = torch.clamp(offs.to(torch.int64), max=length)
+        nxt = torch.cat([offs[1:], offs.new_full((1,), length)])
+        s = torch.cumsum(g_vals.to(torch.float64), dim=1)
+        s = torch.cat([s.new_zeros((s.shape[0], 1)), s], dim=1)
+        d_vals = (s[:, nxt] - s[:, offs]).to(g_vals.dtype)
+        return d_vals, None, None, None, None, None

@@ -1,8 +1,8 @@
 """Build, load and count the hand-written CUDA kernels of `csrc/`.
 
-The sources compile with nvcc into ONE shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds), loaded with
-ctypes. The library is built at first use into `log_tpu_torch.BUILD_DIR`
+The sources compile with nvcc, one process per source, all started
+together, and link into ONE shared library with a plain C interface (no
+PyTorch headers, so the build takes seconds), loaded with ctypes. The library is built at first use into `log_tpu_torch.BUILD_DIR`
 under a name that carries a hash of the sources and flags, so an edited
 source rebuilds. Nothing here runs at import time: importing needs neither
 nvcc nor a GPU.
@@ -26,14 +26,15 @@ import torch
 from .. import BUILD_DIR
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("pack.cu", "expand.cu", "rasterize_fwd.cu")
+SOURCES = ("pack.cu", "expand.cu", "rasterize_fwd.cu", "rasterize_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 # launches per kernel wrapper since the last reset_launches()
-LAUNCHES = {"pack_rows": 0, "expand_with_keys": 0, "rasterize_fwd": 0}
+LAUNCHES = {"pack_rows": 0, "expand_with_keys": 0, "rasterize_fwd": 0,
+            "rasterize_bwd": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +45,8 @@ _SIGNATURES = {
                              _VP, _VP],
     "log_rasterize_fwd": [_VP, _LL, _VP, _VP, _I, _I, _I, _VP, _I, _VP, _VP,
                           _VP, _VP, _VP, _VP, _VP],
+    "log_rasterize_bwd": [_VP, _LL, _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP,
+                          _VP, _VP, _VP],
 }
 
 _lock = threading.Lock()
@@ -82,22 +85,43 @@ def library_path() -> Path:
 
 def build(force: bool = False) -> float:
     """Compile the kernels if the library for the current sources is
-    missing (or always, with force). Returns the seconds spent in nvcc."""
+    missing (or always, with force): one nvcc per source in parallel, then
+    one link. Returns the seconds spent in nvcc."""
     global build_log
     out = library_path()
     if out.exists() and not force:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                          str(CSRC / src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [src for src, p in zip(SOURCES, procs) if p.returncode != 0]
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             "-o", str(tmp), *(str(o) for o in objs)],
+            capture_output=True, text=True,
+        )
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append("link")
     seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    build_log = "".join(logs)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, out)  # atomic: concurrent builders never see a half file
     return seconds
 

@@ -88,7 +88,6 @@ def _composite(splats: Splats, colors, image_height: int, image_width: int,
             pw, alpha_map)
 
 
-@torch.no_grad()
 def rasterize(
     xyz, colors, opacity, scaling, rotation, means2d_offset, world_view,
     full_proj, focal_x, focal_y, tan_fovx, tan_fovy, background,
@@ -96,7 +95,8 @@ def rasterize(
     mode: str = "antialias", use_filter: bool = True, chunk: int = 32,
 ):
     """Rasterize activated Gaussians (see the module doc). Inputs may be
-    capacity-padded; `active_mask` culls the padding."""
+    capacity-padded; `active_mask` culls the padding. Differentiable under
+    autograd (the serving callers run it under torch.no_grad)."""
     splats = project_gaussians(
         xyz, scaling, rotation, opacity, world_view, full_proj, focal_x,
         focal_y, tan_fovx, tan_fovy, image_height, image_width, mode=mode,

@@ -1,4 +1,4 @@
-"""Tiled rasterizer, forward half; counterpart of log_tpu/ops/rasterize_tiled.py.
+"""Tiled rasterizer; counterpart of log_tpu/ops/rasterize_tiled.py.
 
 The production render path, in four stages:
 
@@ -15,6 +15,11 @@ The production render path, in four stages:
   4. per-tile compositing, kernel K1 (`rasterize_forward`), with optional
      densification statistics.
 
+Under autograd the chain runs backward through K1's VJP, the per-tile
+backward kernel K2 (`rasterize_backward`), and the plain-torch VJPs of K4
+(a row slice), the sort (a scatter by the permutation) and K3 (a segment
+sum, ops/expand.py).
+
 Every kernel wrapper takes its plain torch version for CPU tensors and
 launches the CUDA kernel (csrc/) for CUDA tensors. Integer rows (offsets,
 rect geometry, ids) are int32 tensors; the gaussian id rides row 10 of the
@@ -30,7 +35,7 @@ import ctypes
 import torch
 
 from . import kernels
-from .expand import expand_with_keys
+from .expand import ExpandWithKeys
 from .projection import ALPHA_MAX, ALPHA_MIN, T_EPS, project_gaussians
 
 TILE_H = 8
@@ -195,7 +200,7 @@ def expand_sort_pairs(splats, colors, image_height: int, image_width: int,
         colors[:, 0], colors[:, 1], colors[:, 2], splats.depth,
     ]).to(torch.float32).contiguous()
     ints = torch.stack([offsets, geo.to(torch.int32), id_row]).contiguous()
-    vals_pc, ints_pc, tile_key, depth_key = expand_with_keys(
+    vals_pc, ints_pc, tile_key, depth_key = ExpandWithKeys.apply(
         vals, ints, total_c, A, tiles_x, num_tiles
     )
     real = tile_key < num_tiles
@@ -205,7 +210,7 @@ def expand_sort_pairs(splats, colors, image_height: int, image_width: int,
     return {
         "tile_s": tile_key[perm],
         "gid_s": ints_pc[2][perm],
-        "values_s": vals_pc[:, perm],
+        "values_s": SortPermute.apply(vals_pc, perm),
         "perm_s": perm,
         "real": real,
         "tiles_x": tiles_x,
@@ -225,7 +230,9 @@ def pack_sorted_pairs(tile_s, gid_s, values_s, tiles_x: int, tiles_y: int):
                           device=tile_s.device)
     starts = torch.searchsorted(tile_s, bounds, side="left").to(torch.int32)
     tile_start = starts[:-1]
-    pair_data = pack_rows([values_s[r] for r in range(N_VAL_ROWS)] + [gid_s])
+    pair_data = PackRows.apply(
+        N_ROWS, PAIR_CHUNK, *(values_s[r] for r in range(N_VAL_ROWS)), gid_s
+    )
     return {
         "pair_data": pair_data,
         "pair_gid": gid_s,
@@ -412,9 +419,238 @@ def rasterize_forward(pair_data, tile_start, tile_count, background,
 
 
 # --------------------------------------------------------------------------
+# K2: per-tile backward
+# --------------------------------------------------------------------------
+def _image_to_tiles(x, tiles_x: int, tiles_y: int):
+    """(C, Hp, Wp) image -> (num_tiles, C, TILE_PIX) per-tile rows."""
+    C = x.shape[0]
+    x = x.reshape(C, tiles_y, TILE_H, tiles_x, TILE_W)
+    return x.permute(1, 3, 0, 2, 4).reshape(tiles_y * tiles_x, C, TILE_PIX)
+
+
+def rasterize_backward_plain(pair_data, tile_start, tile_count, cend, tfinal,
+                             dcolor, dalpha, background, tiles_x: int,
+                             tiles_y: int, tile_group: int = 256):
+    """Plain torch version of `rasterize_backward` (same contract).
+
+    Vectorized over groups of tiles; each tile's composited chunks are
+    walked back to front. Inside a chunk the transmittance before each pair
+    is the running value after the chunk divided by the inclusive suffix
+    product of (1 - alpha) (a reversed cumprod), and the suffix sum u of
+    later contributions a reversed cumsum: the TPU kernel's formulation,
+    with cumprod in place of its log-space matrix products.
+    """
+    dev = pair_data.device
+    num_tiles = tiles_x * tiles_y
+    pstride = pair_data.shape[1]
+    lane = torch.arange(TILE_PIX, device=dev)
+    lane_x = (lane % TILE_W).to(torch.float32)
+    lane_y = (lane // TILE_W).to(torch.float32)
+    tid = torch.arange(num_tiles, device=dev)
+    org_x = ((tid % tiles_x) * TILE_W).to(torch.float32)
+    org_y = ((tid // tiles_x) * TILE_H).to(torch.float32)
+    start = tile_start.to(torch.int64)
+    end = start + tile_count.to(torch.int64)
+    off0 = torch.div(start, PAIR_CHUNK, rounding_mode="floor") * PAIR_CHUNK
+    n_chunks = torch.div(end - off0 + PAIR_CHUNK - 1, PAIR_CHUNK,
+                         rounding_mode="floor")
+    n_walk = torch.minimum(n_chunks, cend.to(torch.int64))
+    k_iota = torch.arange(PAIR_CHUNK, device=dev)
+    t_fin = _image_to_tiles(tfinal[None], tiles_x, tiles_y)[:, 0]
+    dC = _image_to_tiles(dcolor, tiles_x, tiles_y)  # (T, 3, TILE_PIX)
+    d_alpha = _image_to_tiles(dalpha[None], tiles_x, tiles_y)[:, 0]
+    bg = background.to(torch.float32)
+    bg_dot = (bg[:, None] * dC).sum(dim=1)
+    t_run_all = t_fin.clone()
+    u_run_all = t_fin * bg_dot - d_alpha * t_fin
+    grad = torch.zeros((N_ROWS, pstride), dtype=torch.float32, device=dev)
+    for g0 in range(0, num_tiles, tile_group):
+        group = tid[g0:g0 + tile_group]
+        walk = n_walk[group]
+        k = 0
+        while True:
+            sub = group[walk > k]
+            if sub.numel() == 0:
+                break
+            c = n_walk[sub] - 1 - k  # this step's chunk of each tile
+            cols = off0[sub, None] + c[:, None] * PAIR_CHUNK + k_iota
+            in_range = (cols >= start[sub, None]) & (cols < end[sub, None])
+            d = pair_data[:, torch.clamp(cols, max=pstride - 1)]
+            dx = d[ROW_PX][:, :, None] - (org_x[sub, None] + lane_x)[:, None]
+            dy = d[ROW_PY][:, :, None] - (org_y[sub, None] + lane_y)[:, None]
+            cxx = d[ROW_CXX][:, :, None]
+            cxy = d[ROW_CXY][:, :, None]
+            cyy = d[ROW_CYY][:, :, None]
+            power = -0.5 * (cxx * dx * dx + cyy * dy * dy) - cxy * dx * dy
+            g_exp = torch.exp(power)
+            a_unc = d[ROW_OPAC][:, :, None] * g_exp
+            alpha = torch.clamp(a_unc, max=ALPHA_MAX)
+            cond = (power <= 0.0) & (alpha >= ALPHA_MIN) & in_range[:, :, None]
+            alpha = torch.where(cond, alpha, 0.0)
+            one_minus = 1.0 - alpha
+            p_suffix = torch.flip(torch.cumprod(torch.flip(one_minus, [1]),
+                                                dim=1), [1])
+            t_run = t_run_all[sub][:, None, :]
+            t_i = torch.where(p_suffix > 0.0, t_run / p_suffix, 0.0)
+            w = alpha * t_i
+            mask = (t_i * one_minus >= T_EPS).to(torch.float32)
+            w_m = w * mask
+            dCs = dC[sub]  # (n, 3, TILE_PIX)
+            cdot = (d[ROW_R][:, :, None] * dCs[:, None, 0]
+                    + d[ROW_G][:, :, None] * dCs[:, None, 1]
+                    + d[ROW_B][:, :, None] * dCs[:, None, 2])
+            v = w_m * cdot
+            v_suffix = torch.flip(torch.cumsum(torch.flip(v, [1]), dim=1), [1])
+            u_i = u_run_all[sub][:, None, :] + (v_suffix - v)
+            dl_da = mask * t_i * cdot - u_i / one_minus
+            dl_da = torch.where(cond & (a_unc < ALPHA_MAX), dl_da, 0.0)
+            dl_dpower = dl_da * a_unc
+            rows = torch.stack([
+                (dl_dpower * -(cxx * dx + cxy * dy)).sum(-1),
+                (dl_dpower * -(cyy * dy + cxy * dx)).sum(-1),
+                (dl_dpower * (-0.5 * dx * dx)).sum(-1),
+                (dl_dpower * (-dx * dy)).sum(-1),
+                (dl_dpower * (-0.5 * dy * dy)).sum(-1),
+                (dl_da * g_exp).sum(-1),
+                torch.bmm(w_m, dCs[:, 0, :, None])[..., 0],
+                torch.bmm(w_m, dCs[:, 1, :, None])[..., 0],
+                torch.bmm(w_m, dCs[:, 2, :, None])[..., 0],
+            ])  # (9, n, CHUNK)
+            grad[:ROW_B + 1, cols[in_range]] = rows[:, in_range]
+            t_run_all[sub] = torch.where(p_suffix[:, 0] > 0.0,
+                                         t_run[:, 0] / p_suffix[:, 0], 0.0)
+            u_run_all[sub] = u_run_all[sub] + v.sum(dim=1)
+            k += 1
+    return grad
+
+
+def rasterize_backward(pair_data, tile_start, tile_count, cend, tfinal,
+                       dcolor, dalpha, background, tiles_x: int,
+                       tiles_y: int):
+    """Per-pair gradients of the compositing: the VJP of `rasterize_forward`.
+
+    pair_data / tile_start / tile_count / background as for
+    `rasterize_forward`; cend and tfinal are its outputs; dcolor (3, Hp, Wp)
+    and dalpha (Hp, Wp) the cotangents of the color and of alpha = 1 -
+    tfinal. Returns (16, A + 128) f32: rows 0..8 are d[px, py, cxx, cxy, cyy,
+    opacity, r, g, b] per pair, everything else zero (pairs past a tile's
+    composited chunks included).
+    """
+    if pair_data.device.type == "cpu":
+        return rasterize_backward_plain(pair_data, tile_start, tile_count,
+                                        cend, tfinal, dcolor, dalpha,
+                                        background, tiles_x, tiles_y)
+    background = background.to(torch.float32).contiguous()
+    kernels.require_cuda("rasterize_backward", pair_data, tile_start,
+                         tile_count, cend, tfinal, dcolor, dalpha, background)
+    num_tiles = tiles_x * tiles_y
+    Hp, Wp = tiles_y * TILE_H, tiles_x * TILE_W
+    if (pair_data.dtype != torch.float32 or pair_data.dim() != 2
+            or pair_data.shape[0] != N_ROWS
+            or any(t.dtype != torch.int32 or t.shape != (num_tiles,)
+                   for t in (tile_start, tile_count, cend))
+            or any(t.dtype != torch.float32
+                   for t in (tfinal, dcolor, dalpha))
+            or tfinal.shape != (Hp, Wp) or dalpha.shape != (Hp, Wp)
+            or dcolor.shape != (3, Hp, Wp) or background.numel() != 3):
+        raise ValueError(
+            f"rasterize_backward: bad inputs pair_data {pair_data.dtype} "
+            f"{tuple(pair_data.shape)}, tfinal {tuple(tfinal.shape)}, "
+            f"dcolor {tuple(dcolor.shape)}, dalpha {tuple(dalpha.shape)}, "
+            f"tiles {tiles_x} x {tiles_y}"
+        )
+    grad = torch.zeros((N_ROWS, pair_data.shape[1]), dtype=torch.float32,
+                       device=pair_data.device)
+    lib = kernels.library()
+    rc = lib.log_rasterize_bwd(
+        kernels.ptr(pair_data), pair_data.shape[1], kernels.ptr(tile_start),
+        kernels.ptr(tile_count), kernels.ptr(cend), num_tiles, tiles_x,
+        tiles_y, kernels.ptr(tfinal), kernels.ptr(dcolor),
+        kernels.ptr(dalpha), kernels.ptr(background), kernels.ptr(grad),
+        kernels.stream(),
+    )
+    kernels.check(rc, "rasterize_backward")
+    kernels.LAUNCHES["rasterize_bwd"] += 1
+    return grad
+
+
+# --------------------------------------------------------------------------
+# autograd: the VJPs of the sort, K4 and K1 (K3's lives in ops/expand.py)
+# --------------------------------------------------------------------------
+class SortPermute(torch.autograd.Function):
+    """values[:, perm]; the VJP scatters the cotangent back by perm. perm is
+    a permutation, so the scatter is an assignment, not an accumulation."""
+
+    @staticmethod
+    def forward(ctx, values, perm):
+        ctx.save_for_backward(perm)
+        return values[:, perm]
+
+    @staticmethod
+    def backward(ctx, g):
+        (perm,) = ctx.saved_tensors
+        out = torch.empty_like(g)
+        out[:, perm] = g
+        return out, None
+
+
+class PackRows(torch.autograd.Function):
+    """`pack_rows` (K4) with a VJP: row r's cotangent is g[r, :A]."""
+
+    @staticmethod
+    def forward(ctx, n_out, spare, *rows):
+        ctx.A = rows[0].shape[0]
+        return pack_rows(list(rows), n_out, spare)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None) + tuple(
+            g[r, :ctx.A] if need else None
+            for r, need in enumerate(ctx.needs_input_grad[2:])
+        )
+
+
+class RasterCore(torch.autograd.Function):
+    """`rasterize_forward` (K1) with `rasterize_backward` (K2) as its VJP.
+
+    Saves the pair array, the tile runs, the background, tfinal and cend;
+    the public alpha is 1 - tfinal, so K2 gets dalpha = -d_tfinal. The
+    background's cotangent is sum(tfinal * d_color) per channel. pid, pwp,
+    pair_w and cend are not differentiable.
+    """
+
+    @staticmethod
+    def forward(ctx, pair_data, tile_start, tile_count, background,
+                tiles_x, tiles_y, with_stats):
+        out = rasterize_forward(pair_data, tile_start, tile_count, background,
+                                tiles_x, tiles_y, with_stats)
+        _color, tfinal, pid, pwp, pair_w, cend = out
+        ctx.save_for_backward(pair_data, tile_start, tile_count, background,
+                              tfinal, cend)
+        ctx.tiles = (tiles_x, tiles_y)
+        ctx.mark_non_differentiable(pid, pwp, pair_w, cend)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_color, d_tfinal, *_):
+        pair_data, tile_start, tile_count, background, tfinal, cend = (
+            ctx.saved_tensors
+        )
+        pair_grad = rasterize_backward(
+            pair_data, tile_start, tile_count, cend, tfinal,
+            d_color.contiguous(), (-d_tfinal).contiguous(), background,
+            *ctx.tiles,
+        )
+        d_bg = None
+        if ctx.needs_input_grad[3]:
+            d_bg = (tfinal[None] * d_color).sum(dim=(1, 2))
+            d_bg = d_bg.to(background.dtype)
+        return pair_grad, None, None, d_bg, None, None, None
+
+
+# --------------------------------------------------------------------------
 # public API
 # --------------------------------------------------------------------------
-@torch.no_grad()
 def rasterize_tiled(
     xyz, colors, opacity, scaling, rotation, means2d_offset, world_view,
     full_proj, focal_x, focal_y, tan_fovx, tan_fovy, background,
@@ -424,7 +660,9 @@ def rasterize_tiled(
     runs_tail_only: bool = False, prefix_mask=None, gid_ids=None,
 ):
     """Same output contract as rasterize_ref.rasterize, plus the binning's
-    unclamped pair demand under "pair_total".
+    unclamped pair demand under "pair_total". Differentiable (under
+    autograd) w.r.t. the float inputs through the projection, the K3
+    expansion, the sort, K4 and K1, whose VJPs are plain torch and K2.
 
     gid_ids: optional (P,) int32 caller ids for the per-gaussian stat rows
     (ids >= P drop), so stats land directly in the caller's index space.
@@ -442,7 +680,7 @@ def rasterize_tiled(
         active_prefix=prefix_mask if prefix_mask is not None else active_mask,
         gid_ids=gid_ids,
     )
-    color, tfinal, pid_pair, pwp, pair_w, _cend = rasterize_forward(
+    color, tfinal, pid_pair, pwp, pair_w, _cend = RasterCore.apply(
         pairs["pair_data"], pairs["tile_start"], pairs["tile_count"],
         background, pairs["tiles_x"], pairs["tiles_y"], with_stats,
     )

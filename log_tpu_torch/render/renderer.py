@@ -1,8 +1,11 @@
-"""Renderer; serving half of log_tpu/render/renderer.py.
+"""Renderer; counterpart of log_tpu/render/renderer.py.
 
 `NaiveRendererAndLoss.vis` is the no-grad inference path of the demo, val
 and viewer splits: one `LoG.render_fused` frame per camera of the batch.
-The losses, `render_one` and the depth branch come with the training slice.
+`prepare_camera(is_train=True)` gives the training step its camera and its
+background (random under `use_randback`); the loss itself runs inside the
+training step (model/train_step.py). `render_one` and the depth branch are
+ROADMAP queue 1.2b.
 """
 from __future__ import annotations
 
@@ -67,12 +70,16 @@ class NaiveRendererAndLoss(BaseRender):
     def __init__(self, split="train", use_randback=False,
                  background=(0.0, 0.0, 0.0), use_rand_radius=False,
                  use_origin_render=False, render_depth=False, device="cuda"):
-        # use_rand_radius and use_origin_render configure the training
-        # renders; the fused frame renders in 'antialias' mode, as in the
-        # JAX package
+        # use_rand_radius: the trainer jitters the LoD pixel threshold per
+        # step; use_origin_render selects the Inria dilation for the
+        # two-phase render (queue 1.2b); the fused frame and the training
+        # step render in 'antialias' mode, as in the JAX package
         self.split = split
         self.device = torch.device(device)
         self.use_randback = use_randback
+        self.use_rand_radius = use_rand_radius
+        self.mode = "original" if use_origin_render else "antialias"
+        self.iteration = 0
         self.render_depth = render_depth
         self.background = np.asarray(background, np.float32)
 
@@ -104,7 +111,7 @@ class NaiveRendererAndLoss(BaseRender):
         if self.render_depth or getattr(model, "training", False):
             raise NotImplementedError(
                 "the two-phase render (depth maps, training-mode models) "
-                "comes with the training slice; call model.eval() first"
+                "is ROADMAP queue 1.2b; call model.eval() first"
             )
         preds = defaultdict(list)
         B = np.asarray(batch["camera"]["camera_center"]).shape[0]

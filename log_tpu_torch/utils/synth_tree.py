@@ -9,8 +9,12 @@ at 0.55x scale. Unlike the JAX generator, the SH bank is small random noise
 rather than zeros, so that view-dependent color is exercised.
 
 `build_checkpoint` returns a LoG checkpoint dict in the key layout of
-`LoG.state_dict` (gaussian.*, tree.*). Both packages' `load_state_dict`
-take it as is, which is how one set of weights is carried across.
+`LoG.state_dict` (gaussian.*, tree.*, and the counter's radius bounds).
+Both packages' `load_state_dict` take it as is, which is how one set of
+weights is carried across. The training step clamps each point's scale into
+[counter.radius3d_min, counter.radius3d_max] (the init pass sets them in a
+real run); here they are 0.5x the point's smallest and 2x its largest axis,
+so training starts inside them.
 """
 from __future__ import annotations
 
@@ -116,4 +120,6 @@ def build_checkpoint(n_roots: int, seed: int = 0, sh_degree: int = 1) -> dict:
         "tree.local_index": local_index,
         "tree.depth": depth,
         "tree.root_id": root_id,
+        "counter.radius3d_min": (0.5 * scal.min(axis=1)).astype(f32),
+        "counter.radius3d_max": (2.0 * scal.max(axis=1)).astype(f32),
     }
