@@ -11,15 +11,31 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    loaded through load_object -> LoG.load_state_dict, with the model args
    of config/synthetic/level_of_gaussian.yml;
 3. kernels vs plain: the first frame of a 1920x1088 orbit is rendered once
-   while the inputs of every kernel call are recorded; each CUDA kernel is
-   then replayed on those main-path inputs against its plain torch version
-   (K4 and K3 bit-exact, K1 within the tolerances below), both timed;
+   (the generic flat-cut frame) while the inputs of every kernel call are
+   recorded; each CUDA kernel is then replayed on those main-path inputs
+   against its plain torch version (K4 and K3 bit-exact, K1 within the
+   tolerances below), both timed;
 4. serving slice: launch counters reset, 12 orbit frames through
    NaiveRendererAndLoss.vis -> LoG.render_fused (2 warm-up), timed with
    torch.cuda.synchronize(); every kernel of the path must have launched;
 5. serving checks: the frames are finite, of the expected shape and not
    blank; frame 0 rendered again with the plain versions agrees with the
-   kernels; a small tree rendered through the kernels agrees with the oracle
+   kernels;
+   then, on the same model with tree.cut_method = "flat_slice":
+   a. flat_slice frames: frame 0's K3p and K5 inputs replayed against their
+      plain versions (K3p bit-exact, K5 within K1's tolerances) and every
+      K4 pack of that frame bit-exact, both timed; 12 orbit frames (the
+      weight cull every frame), K5 once per frame; frame 0 with the plain
+      versions, and against the generic frame 0 within the JAX package's
+      cross-path bounds (|cut difference| <= max(64, 2%), PSNR > 35 dB);
+   b. the same frames with LOG_TPU_COMPACT=pallas: K6 bit-exact against its
+      plain version on frame 0's inputs, once per frame, and frames
+      bit-identical to a.'s;
+   c. block-pruned frames: a reference frame 0 at SH degree 0, then
+      LoG.optimize_render_layout() and check_render_every=4, 12 orbit
+      frames that must all take the block path (4 counts), frame 0 against
+      the reference within the cross-path bounds;
+   finally a small tree rendered through the kernels agrees with the oracle
    rasterizer (rasterize_ref) on the same card;
 6. training setup: the same tree loaded with split="train" (zero Adam
    moments, the counter's radius bounds), base_iter 20 as in
@@ -36,8 +52,10 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    first Adam moments); every parameter and moment finite after each step;
    the loss of the last 4 steps below that of the first 4; the counters
    filled on the kept rows.
-With --profile, 4 more training steps run under torch.profiler and the
-device time by kernel goes to build/train_profile.txt.
+With --profile, 4 more frames of the generic, flat_slice and block phases
+and 4 more training steps run under torch.profiler, each after its timed
+run; the device time by kernel goes to build/{generic,flat_slice,block,
+train}_profile.txt.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -113,8 +131,23 @@ KERNEL_SOURCES = {
                       "log_tpu/ops/rasterize_tiled.py:793"),
     "rasterize_bwd": ("log_tpu_torch/csrc/rasterize_bwd.cu",
                       "log_tpu/ops/rasterize_tiled.py:1370"),
+    "expand_packed": ("log_tpu_torch/csrc/expand.cu",
+                      "log_tpu/ops/expand_pallas.py:238"),
+    "rasterize_fwd_packed": ("log_tpu_torch/csrc/rasterize_fwd_packed.cu",
+                             "log_tpu/ops/rasterize_tiled.py:1094"),
+    "stream_compact": ("log_tpu_torch/csrc/compact.cu",
+                       "log_tpu/ops/compact_pallas.py:48"),
 }
 SERVING_KERNELS = ("pack_rows", "expand_with_keys", "rasterize_fwd")
+# the flat_slice frame: the root cull render (K3, K4, K1) and the packed
+# column render (K4, K3p, K5)
+FLAT_KERNELS = SERVING_KERNELS + ("expand_packed", "rasterize_fwd_packed")
+BLOCK_KERNELS = ("pack_rows", "expand_packed", "rasterize_fwd_packed")
+# flat_slice and block frames against another path's frame of the same
+# camera: the JAX package's cross-path bounds (tests/test_block_render.py)
+CROSS_PATH_PSNR = 35.0
+CHECK_RENDER_EVERY = 4
+PROFILE = "--profile" in sys.argv[1:]
 
 
 def make_cam(theta, height=18.0, radius=22.0, h=H, w=W, focal=1400.0):
@@ -175,10 +208,18 @@ def plain_versions():
     from log_tpu_torch.ops import expand as ex
     from log_tpu_torch.ops import rasterize_tiled as rt
 
-    with patched(ex, {"expand_with_keys": ex.expand_with_keys_plain}), \
+    from log_tpu_torch.ops import compact
+
+    with patched(ex, {"expand_with_keys": ex.expand_with_keys_plain,
+                      "expand_packed_with_keys":
+                          ex.expand_packed_with_keys_plain}), \
             patched(rt, {"pack_rows": rt.pack_rows_plain,
                          "rasterize_forward": rt.rasterize_forward_plain,
-                         "rasterize_backward": rt.rasterize_backward_plain}):
+                         "rasterize_backward": rt.rasterize_backward_plain,
+                         "rasterize_forward_packed":
+                             rt.rasterize_forward_packed_plain}), \
+            patched(compact, {"stream_compact_cols":
+                              compact.stream_compact_cols_plain}):
         yield
 
 
@@ -194,15 +235,25 @@ def recording(calls):
             return fn(*args, **kwargs)
         return call
 
-    with patched(ex, {"expand_with_keys": recorder("expand_with_keys",
-                                                   ex.expand_with_keys)}), \
+    from log_tpu_torch.ops import compact
+
+    with patched(ex, {
+                "expand_with_keys": recorder("expand_with_keys",
+                                             ex.expand_with_keys),
+                "expand_packed_with_keys": recorder(
+                    "expand_packed", ex.expand_packed_with_keys),
+            }), \
             patched(rt, {
                 "pack_rows": recorder("pack_rows", rt.pack_rows),
                 "rasterize_forward": recorder("rasterize_fwd",
                                               rt.rasterize_forward),
                 "rasterize_backward": recorder("rasterize_bwd",
                                                rt.rasterize_backward),
-            }):
+                "rasterize_forward_packed": recorder(
+                    "rasterize_fwd_packed", rt.rasterize_forward_packed),
+            }), \
+            patched(compact, {"stream_compact_cols": recorder(
+                "stream_compact", compact.stream_compact_cols)}):
         yield calls
 
 
@@ -313,8 +364,9 @@ def compare_kernels(calls, log):
     return rows, failures
 
 
-def run_slice(model, renderer, batches, log):
-    """The timed orbit: returns (per-frame ms list, renders, telemetry)."""
+def run_slice(model, renderer, batches, log, label="slice"):
+    """The timed orbit: returns (per-frame ms list, renders, telemetry,
+    launches, peak bytes)."""
     import torch
 
     from log_tpu_torch.ops import kernels
@@ -335,9 +387,33 @@ def run_slice(model, renderer, batches, log):
         renders.append(out["render"][0])
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    log(f"slice: {len(batches)} frames ({WARMUP} warm-up), per-frame ms "
+    log(f"{label}: {len(batches)} frames ({WARMUP} warm-up), per-frame ms "
         + " ".join(f"{t['ms']:.2f}" for t in telemetry))
+    last = telemetry[-1]
+    log(f"{label}: mean frame {np.mean(frame_ms):.3f} ms (min "
+        f"{np.min(frame_ms):.3f}, max {np.max(frame_ms):.3f}) over "
+        f"{len(frame_ms)} frames; last frame: cut {last['cut']} points, "
+        f"slice bucket {last['k_visible']}, pair demand "
+        f"{last['pair_total']} (budget {last['max_pairs']}); peak memory "
+        f"{peak / 2**30:.3f} GiB; launches {launches}")
     return frame_ms, renders, telemetry, launches, peak
+
+
+def phase_json(frame_ms, telemetry, launches, peak):
+    return {"frame_ms_mean": float(np.mean(frame_ms)),
+            "frame_ms_min": float(np.min(frame_ms)),
+            "frame_ms_max": float(np.max(frame_ms)), "frame_ms": frame_ms,
+            "frames": telemetry, "launches": launches, "peak_bytes": peak}
+
+
+def check_frames(renders, label):
+    """Finite frames of the expected shape that are not blank."""
+    img = np.stack(renders)
+    if img.shape != (len(renders), 3, H, W) or not np.isfinite(img).all():
+        return [f"{label}: bad frames, shape {img.shape}"]
+    if float(img.std()) < 1e-3 or float(img.max()) <= 0.0:
+        return [f"{label}: frames are blank"]
+    return []
 
 
 def oracle_check(device, log):
@@ -374,6 +450,210 @@ def oracle_check(device, log):
         f"{tiled[2].tolist()} vs {ref[2].tolist()}, render max_abs "
         f"{float(d.max()):.3g} mean_abs {float(d.mean()):.3g}")
     return float(d.max()), float(d.mean())
+
+
+# ------------------------------------------------ flat_slice, K6, blocks
+def psnr(a, b):
+    mse = float(np.mean((np.asarray(a, np.float64)
+                         - np.asarray(b, np.float64)) ** 2))
+    return 10.0 * math.log10(1.0 / max(mse, 1e-12))
+
+
+def cross_path(label, img, cut, ref_img, ref_cut, log):
+    """The JAX package's cross-path bounds: |cut difference| <= max(64, 2%)
+    and PSNR > 35 dB. Returns (psnr, failures)."""
+    p = psnr(img, ref_img)
+    log(f"{label}: cut {cut} vs {ref_cut}, PSNR {p:.2f} dB")
+    ok = (cut > 0 and abs(cut - ref_cut) <= max(64, int(0.02 * ref_cut))
+          and p > CROSS_PATH_PSNR)
+    return p, [] if ok else [f"{label}: cut {cut} vs {ref_cut}, PSNR {p}"]
+
+
+def compare_packed_kernels(calls, log):
+    """K3p and K5 against their plain versions on frame 0's own inputs of
+    the flat_slice frame, and every K4 pack of that frame bit-exact."""
+    import torch
+
+    from log_tpu_torch.ops import expand as ex
+    from log_tpu_torch.ops import rasterize_tiled as rt
+
+    rows, failures = {}, []
+    for args, kw in calls["pack_rows"]:
+        if not torch.equal(_bits(rt.pack_rows(*args, **kw)),
+                           _bits(rt.pack_rows_plain(*args, **kw))):
+            failures.append(f"K4 pack of {len(args[0])} rows is not exact")
+
+    # K3p: rows bit-exact up to `total`, keys everywhere
+    args, kw = calls["expand_packed"][-1]
+    k = ex.expand_packed_with_keys(*args, **kw)
+    p = ex.expand_packed_with_keys_plain(*args, **kw)
+    total = int(args[2].reshape(()))
+    exact = (torch.equal(_bits(k[0][:, :total]), _bits(p[0][:, :total]))
+             and torch.equal(k[1], p[1]) and torch.equal(_bits(k[2]),
+                                                         _bits(p[2])))
+    err = max(float((k[0][:, :total] - p[0][:, :total]).abs().max()),
+              float((k[1] - p[1]).abs().max()),
+              float((k[2].double() - p[2].double()).abs().max()))
+    ms = device_ms(lambda: ex.expand_packed_with_keys(*args, **kw), 10)
+    pms = device_ms(lambda: ex.expand_packed_with_keys_plain(*args, **kw), 10)
+    log(f"K3p expand_packed A={args[3]} P={args[1]} total={total}: "
+        f"exact={exact} max_abs={err:.3g} kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms")
+    if not exact:
+        failures.append("K3p expand_packed_with_keys is not bit-exact")
+    rows["expand_packed"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+
+    # K5: K1's tolerances
+    args, kw = calls["rasterize_fwd_packed"][-1]
+    k = rt.rasterize_forward_packed(*args, **kw)
+    p = rt.rasterize_forward_packed_plain(*args, **kw)
+    err = max(float((a - b).abs().max()) for a, b in zip(k, p))
+    mean = max(float((a - b).abs().mean()) for a, b in zip(k, p))
+    ms = device_ms(lambda: rt.rasterize_forward_packed(*args, **kw), 10)
+    pms = device_ms(lambda: rt.rasterize_forward_packed_plain(*args, **kw), 2)
+    log(f"K5 rasterize_fwd_packed pairs={args[0].shape[1]}: color/tfinal "
+        f"max_abs={err:.3g} mean_abs={mean:.3g}; kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms")
+    if err > K1_MAX_ABS or mean > K1_MEAN_ABS:
+        failures.append("K5 rasterize_forward_packed disagrees with plain")
+    rows["rasterize_fwd_packed"] = {"max_abs_err": err, "ms": ms,
+                                    "plain_ms": pms}
+    return rows, failures
+
+
+def compare_k6(calls, log):
+    """K6 against its plain version on frame 0's compaction inputs:
+    bit-exact."""
+    import torch
+
+    from log_tpu_torch.ops import compact
+
+    args, kw = calls["stream_compact"][-1]
+    k = compact.stream_compact_cols(*args, **kw)
+    p = compact.stream_compact_cols_plain(*args, **kw)
+    exact = (torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+             and all(torch.equal(_bits(k[0][n]), _bits(p[0][n]))
+                     for n in k[0]))
+    err = max(float((k[0][n].double() - p[0][n].double()).abs().nan_to_num()
+                    .max()) for n in k[0])
+    ms = device_ms(lambda: compact.stream_compact_cols(*args, **kw), 10)
+    pms = device_ms(lambda: compact.stream_compact_cols_plain(*args, **kw), 10)
+    cols, keep, kk = args
+    log(f"K6 stream_compact cap={keep.shape[0]} columns={len(cols)} k={kk} "
+        f"kept={int(keep.sum())}: exact={exact} max_abs={err:.3g}; kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms")
+    fails = [] if exact else ["K6 stream_compact_cols is not bit-exact"]
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}, fails
+
+
+def render_slice_phases(model, renderer, batches, generic0, log):
+    """The flat_slice frame, the same frames with K6, then the block-pruned
+    frame, on the serving model. generic0: (frame 0, its cut) of the
+    generic phase. Returns (json, kernel rows, launches by phase,
+    failures)."""
+    import os
+
+    import torch
+
+    out, rows, runs, failures = {}, {}, {}, []
+
+    # 1. flat_slice: the cull every frame, the packed column render
+    model.tree.cut_method = "flat_slice"
+    model._refresh_device_caches()
+    calls = record_kernel_inputs(model, renderer, batches[0])
+    r, f = compare_packed_kernels(calls, log)
+    rows.update(r)
+    failures += f
+    del calls
+    frame_ms, renders, telemetry, launches, peak = run_slice(
+        model, renderer, batches, log, "flat_slice")
+    runs["flat_slice"] = launches
+    out["flat_slice"] = phase_json(frame_ms, telemetry, launches, peak)
+    if PROFILE:
+        profile_frames("flat_slice", model, renderer, batches, frame_ms, log)
+    failures += check_frames(renders, "flat_slice")
+    for name in FLAT_KERNELS:
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} never launched on the flat_slice "
+                            f"path")
+    if launches["rasterize_fwd_packed"] != len(batches):
+        failures.append(f"K5 launched {launches['rasterize_fwd_packed']} "
+                        f"times in {len(batches)} flat_slice frames")
+    with plain_versions():
+        plain = renderer.vis(batches[0], model)["render"][0]
+    kern = renderer.vis(batches[0], model)["render"][0]
+    frame_diff = float(np.abs(plain - kern).max())
+    log(f"flat_slice frame 0 plain versions: max |plain - kernels| "
+        f"{frame_diff:.4g} (8-bit frames)")
+    if frame_diff > FRAME_MAX_ABS:
+        failures.append(f"flat_slice plain frame differs by {frame_diff}")
+    p, f = cross_path("flat_slice frame 0 vs the generic flat frame",
+                      renders[0], telemetry[0]["cut"], *generic0, log)
+    failures += f
+    out["flat_slice"].update(plain_frame_max_abs=frame_diff,
+                             psnr_vs_generic=p)
+
+    # 2. the same frames with the stream-compaction kernel K6
+    os.environ["LOG_TPU_COMPACT"] = "pallas"
+    try:
+        calls = record_kernel_inputs(model, renderer, batches[0])
+        rows["stream_compact"], f = compare_k6(calls, log)
+        failures += f
+        del calls
+        k6_ms, k6_renders, k6_tel, k6_launches, k6_peak = run_slice(
+            model, renderer, batches, log, "flat_slice+K6")
+    finally:
+        del os.environ["LOG_TPU_COMPACT"]
+    runs["flat_slice_k6"] = k6_launches
+    out["flat_slice_k6"] = phase_json(k6_ms, k6_tel, k6_launches, k6_peak)
+    if k6_launches["stream_compact"] != len(batches):
+        failures.append(f"K6 launched {k6_launches['stream_compact']} times "
+                        f"in {len(batches)} frames")
+    same = all(np.array_equal(a, b) for a, b in zip(renders, k6_renders))
+    log(f"flat_slice+K6: frames bit-identical to the sort compaction's: "
+        f"{same}")
+    if not same:
+        failures.append("K6 frames differ from the sort-compaction frames")
+    del renders, k6_renders
+
+    # 3. block-pruned frames: SH degree 0 (the block path's condition),
+    # the reference frame first, then the layout and a cull every 4 frames
+    model.set_state(active_sh_degree=0)
+    ref = renderer.vis(batches[0], model)["render"][0]
+    ref_cut = model.frame_stats()["cut"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.optimize_render_layout()
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    model.set_state(check_render_every=CHECK_RENDER_EVERY)
+    n_blocks = model.capacity // model._block_cache["S"]
+    log(f"render layout: {layout_s:.2f} s; blocks of "
+        f"{model._block_cache['S']} rows, B = {n_blocks}")
+    b_ms, b_renders, b_tel, b_launches, b_peak = run_slice(
+        model, renderer, batches, log, "block")
+    runs["block"] = b_launches
+    out["block"] = phase_json(b_ms, b_tel, b_launches, b_peak)
+    if PROFILE:
+        profile_frames("block", model, renderer, batches, b_ms, log)
+    failures += check_frames(b_renders, "block")
+    elig = [t.get("eligible_blocks") for t in b_tel]
+    log(f"block: eligible blocks per frame {elig} of B = {n_blocks}")
+    if any(e is None for e in elig):
+        failures.append("a frame after optimize_render_layout did not take "
+                        "the block path")
+    for name in BLOCK_KERNELS:
+        if b_launches[name] <= 0:
+            failures.append(f"kernel {name} never launched on the block path")
+    if b_launches["rasterize_fwd_packed"] != len(batches):
+        failures.append(f"K5 launched {b_launches['rasterize_fwd_packed']} "
+                        f"times in {len(batches)} block frames")
+    p, f = cross_path("block frame 0 vs the flat_slice frame (SH 0)",
+                      b_renders[0], b_tel[0]["cut"], ref, ref_cut, log)
+    failures += f
+    out["block"].update(layout_s=layout_s, n_blocks=n_blocks,
+                        eligible_blocks=elig, psnr_vs_flat_slice=p)
+    return out, rows, runs, failures
 
 
 # --------------------------------------------------------------- training
@@ -573,11 +853,11 @@ def replay_step0(step0, log):
             "kernel_step_ms": k_ms, "plain_step_ms": p_ms}, fails
 
 
-def profile_steps(model, trainer, batches, step_ms, log):
-    """PROFILE_STEPS more steps under torch.profiler. Device time per step
-    by kernel and by the step's labelled ranges (record_function), against
-    step_ms, the median un-profiled step; the full table goes to
-    build/train_profile.txt."""
+def profile_window(label, run, n, wall_ms, log, ranges=False):
+    """n calls of run(i) under torch.profiler: device busy per call (the sum
+    of kernel time) against wall_ms, the median un-profiled call, and the
+    top kernels; the full table goes to build/{label}_profile.txt. ranges:
+    also list the training step's labelled ranges (record_function)."""
     import os
 
     import torch
@@ -587,17 +867,16 @@ def profile_steps(model, trainer, batches, step_ms, log):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i in range(PROFILE_STEPS):
-            trainer.training_step(model, batches[i % TRAIN_VIEWS])
-            trainer.global_iterations += 1
+        for i in range(n):
+            run(i)
         torch.cuda.synchronize()
     avgs = prof.key_averages()
 
-    def dev_ms(e):  # per step
+    def dev_ms(e):  # per call
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        return us / 1e3 / PROFILE_STEPS
+        return us / 1e3 / n
 
     # the step's record_function ranges also appear on the device side (as
     # spans); they are not kernels
@@ -605,15 +884,18 @@ def profile_steps(model, trainer, batches, step_ms, log):
                 and not e.key.startswith("train_step.")]
     busy = sum(dev_ms(e) for e in kernels_)
     os.makedirs("build", exist_ok=True)
-    with open("build/train_profile.txt", "w") as f:
+    with open(f"build/{label}_profile.txt", "w") as f:
         f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=80))
-    log(f"profile: {PROFILE_STEPS} steps, device busy {busy:.3f} ms per step "
-        f"(sum of kernel time) against a median step of {step_ms:.3f} ms "
-        f"un-profiled: busy {100 * busy / step_ms:.1f}%, idle "
-        f"{100 * (1 - busy / step_ms):.1f}%")
+    log(f"profile {label}: {n} calls, device busy {busy:.3f} ms per call "
+        f"(sum of kernel time) against a median call of {wall_ms:.3f} ms "
+        f"un-profiled: busy {100 * busy / wall_ms:.1f}%, idle "
+        f"{100 * (1 - busy / wall_ms):.1f}%; "
+        f"{sum(e.count for e in kernels_) // n} kernel launches per call")
     for e in sorted(kernels_, key=dev_ms, reverse=True)[:20]:
-        log(f"  kernel {dev_ms(e):8.3f} ms/step {e.count // PROFILE_STEPS:5d}x "
+        log(f"  kernel {dev_ms(e):8.3f} ms/call {e.count // n:5d}x "
             f"{e.key[:100]}")
+    if not ranges:
+        return
     # host-side ranges: the device time of the kernels launched inside
     # them (the backward's kernels run on autograd's thread, outside);
     # device-side ranges: their span on the device timeline
@@ -626,9 +908,26 @@ def profile_steps(model, trainer, batches, step_ms, log):
                 dev = getattr(e, "device_time_total", None)
                 if dev is None:
                     dev = e.cuda_time_total
-                what, ms = "kernels", dev / 1e3 / PROFILE_STEPS
-            log(f"  {e.key:28s} {what:7s} {ms:8.3f} ms/step "
-                f"{e.count // PROFILE_STEPS:5d}x")
+                what, ms = "kernels", dev / 1e3 / n
+            log(f"  {e.key:28s} {what:7s} {ms:8.3f} ms/call "
+                f"{e.count // n:5d}x")
+
+
+def profile_steps(model, trainer, batches, step_ms, log):
+    """PROFILE_STEPS more training steps under torch.profiler
+    (build/train_profile.txt)."""
+
+    def step(i):
+        trainer.training_step(model, batches[i % TRAIN_VIEWS])
+        trainer.global_iterations += 1
+
+    profile_window("train", step, PROFILE_STEPS, step_ms, log, ranges=True)
+
+
+def profile_frames(label, model, renderer, batches, frame_ms, log):
+    """PROFILE_STEPS more serving frames under torch.profiler."""
+    profile_window(label, lambda i: renderer.vis(batches[i], model),
+                   PROFILE_STEPS, float(np.median(frame_ms)), log)
 
 
 def main() -> int:
@@ -674,23 +973,13 @@ def main() -> int:
     frame_ms, renders, telemetry, launches, peak = run_slice(
         model, renderer, batches, log
     )
-    last = telemetry[-1]
-    log(f"slice: mean frame {np.mean(frame_ms):.3f} ms (min "
-        f"{np.min(frame_ms):.3f}, max {np.max(frame_ms):.3f}) over "
-        f"{len(frame_ms)} frames; last frame: cut {last['cut']} points, "
-        f"slice bucket {last['k_visible']}, pair demand "
-        f"{last['pair_total']} (budget {last['max_pairs']}); peak memory "
-        f"{peak / 2**30:.3f} GiB; launches {launches}")
     for name in SERVING_KERNELS:
         if launches[name] <= 0:
             failures.append(f"kernel {name} never launched on the serving "
                             f"path")
-
-    img = np.stack(renders)
-    if img.shape != (FRAMES, 3, H, W) or not np.isfinite(img).all():
-        failures.append(f"bad frames: shape {img.shape}")
-    if float(img.std()) < 1e-3 or float(img.max()) <= 0.0:
-        failures.append("frames are blank")
+    failures += check_frames(renders, "slice")
+    if PROFILE:
+        profile_frames("generic", model, renderer, batches, frame_ms, log)
 
     # frame 0 again with every kernel replaced by its plain version
     with plain_versions():
@@ -705,14 +994,24 @@ def main() -> int:
         f"{frame_diff:.4g} (8-bit frames)")
     if frame_diff > FRAME_MAX_ABS:
         failures.append(f"plain frame differs by {frame_diff}")
+    serve_runs = {"generic": launches}
+
+    # ------------------------------------------- flat_slice, K6, blocks
+    generic0 = (renders[0], telemetry[0]["cut"])
+    new_json, new_rows, new_runs, nfail = render_slice_phases(
+        model, renderer, batches, generic0, log)
+    failures += nfail
+    rows.update(new_rows)
+    serve_runs.update(new_runs)
 
     o_max, o_mean = oracle_check(device, log)
     if o_max > ORACLE_MAX_ABS or o_mean > ORACLE_MEAN_ABS:
         failures.append(f"small tree disagrees with the oracle: {o_max}")
     slice_json = {"frame_ms_mean": float(np.mean(frame_ms)),
                   "frame_ms": frame_ms, "plain_frame_ms": plain_ms,
-                  "frames": telemetry, "peak_bytes": peak, "build_s": build_s}
-    del model, renders, img, plain, kern
+                  "frames": telemetry, "peak_bytes": peak, "build_s": build_s,
+                  **new_json}
+    del model, renders, plain, kern, generic0
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- training
@@ -770,7 +1069,7 @@ def main() -> int:
     replay, sfail = replay_step0(step0, log)
     failures += sfail
     del step0
-    if "--profile" in sys.argv[1:]:
+    if PROFILE:
         profile_steps(model, trainer, batches, float(np.median(step_ms)), log)
 
     log(json.dumps({
@@ -782,14 +1081,13 @@ def main() -> int:
                   "launches": t_launches, "step0_replay": replay},
     }))
     kernels_json = []
+    runs = dict(serve_runs, train=t_launches)
     for name, (src, replaces) in KERNEL_SOURCES.items():
-        serve_n = launches.get(name, 0) if name in SERVING_KERNELS else 0
+        by_phase = {phase: run[name] for phase, run in runs.items()}
         kernels_json.append({"name": name, "route": "cuda", "source": src,
                              "replaces": replaces,
-                             "launches": serve_n + t_launches[name],
-                             "launches_serve": serve_n,
-                             "launches_train": t_launches[name],
-                             **rows[name]})
+                             "launches": sum(by_phase.values()),
+                             "launches_by_phase": by_phase, **rows[name]})
     if failures:
         for f in failures:
             print("FAIL: " + f, file=sys.stderr)

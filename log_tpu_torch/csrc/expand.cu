@@ -1,4 +1,5 @@
-// K3: piecewise-constant pair expansion with in-kernel sort-key decode.
+// K3 (and K3p below): piecewise-constant pair expansion with in-kernel
+// sort-key decode.
 //
 // Replaces the Pallas kernel `_expand_kernel` reached from
 // log_tpu/ops/expand_pallas.py:_expand_fwd_impl (expand_pallas_with_keys).
@@ -73,6 +74,54 @@ __global__ void expand_keys_kernel(const float* __restrict__ vals,
   depth_key[j] = dkey;
 }
 
+// K3p: the same expansion from the pre-packed (16, pstride) f32 buffer of
+// the column render path (pack_rows of 15 rows): rows 0-9 values, 10-12 the
+// run offset, rect geometry and caller id as exact f32, 13 the run starts,
+// 14 the next-run starts. Replaces `_expand_kernel` reached through
+// log_tpu/ops/expand_pallas.py:expand_packed_with_keys. One thread per pair
+// column, a binary search of its run over row 13 (exact: every start is an
+// integer below 2^24), 13 row copies and the key decode of K3. Rows 14 and
+// the sentinel columns past P are not read: the search covers [0, P).
+constexpr int kPackedRows = 13;
+constexpr int kRowOffs = 13;
+
+__global__ void expand_packed_kernel(const float* __restrict__ packed,
+                                     long long pstride, int P,
+                                     const int* __restrict__ total_ptr, int A,
+                                     int tiles_x, int num_tiles,
+                                     float* __restrict__ out,
+                                     int* __restrict__ tile_key,
+                                     float* __restrict__ depth_key) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= A) return;
+  const float* offs = packed + kRowOffs * pstride;
+  const float fj = (float)j;
+  int lo = 0, hi = P - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(offs + mid) <= fj) lo = mid; else hi = mid - 1;
+  }
+  const int i = lo;
+  const long long sA = A;
+#pragma unroll
+  for (int r = 0; r < kPackedRows; ++r)
+    out[r * sA + j] = __ldg(packed + r * pstride + i);
+  int tile = num_tiles;
+  float dkey = 3.0e38f;
+  if (j < __ldg(total_ptr)) {
+    const int off = (int)__ldg(packed + 10 * pstride + i);
+    const int geo = (int)__ldg(packed + 11 * pstride + i);
+    const int x0 = geo & 31;
+    const int y0 = (geo >> 5) & 511;
+    const int w = max(geo >> 14, 1);
+    const int k = j - off;
+    tile = (y0 + k / w) * tiles_x + x0 + k % w;
+    dkey = __ldg(packed + kRowDepth * pstride + i);
+  }
+  tile_key[j] = tile;
+  depth_key[j] = dkey;
+}
+
 }  // namespace
 
 // vals: (10, P) f32, ints: (3, P) int32 (row 0 = ascending run starts),
@@ -93,6 +142,30 @@ extern "C" int log_expand_with_keys(const void* vals, const void* ints, int P,
         static_cast<const float*>(vals), static_cast<const int*>(ints), P,
         static_cast<const int*>(total), A, tiles_x, num_tiles, static_cast<float*>(out_vals),
         static_cast<int*>(out_ints), static_cast<int*>(tile_key),
+        static_cast<float*>(depth_key));
+  }
+  return (int)cudaGetLastError();
+}
+
+// packed: (16, pstride) f32 with pstride >= P; total: device int32 scalar;
+// outputs out (13, A) f32, tile_key (A,) int32, depth_key (A,) f32.
+// Returns cudaGetLastError().
+extern "C" int log_expand_packed_with_keys(const void* packed,
+                                           long long pstride, int P,
+                                           const void* total, int A,
+                                           int tiles_x, int num_tiles,
+                                           void* out, void* tile_key,
+                                           void* depth_key, void* stream) {
+  if (P < 1 || A < 0 || pstride < P || A >= (1 << 24))
+    return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const int blocks = (A + threads - 1) / threads;
+  if (blocks > 0) {
+    expand_packed_kernel<<<blocks, threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(packed), pstride, P,
+        static_cast<const int*>(total), A, tiles_x, num_tiles,
+        static_cast<float*>(out), static_cast<int*>(tile_key),
         static_cast<float*>(depth_key));
   }
   return (int)cudaGetLastError();

@@ -5,8 +5,9 @@ Owns the point store and the LoD tree, the densification counters, the
 sparse optimizer and the per-view gain, the device caches the per-frame cut
 reads (tree arrays, parent-attribute cache), checkpoint (de)serialization
 with the reference's key names, the training step (`train_step`,
-`training_iteration`) and the inference frame `render_fused`.
-Densification and its schedule (`update_by_iteration`) are ROADMAP
+`training_iteration`), the inference frame `render_fused` (generic,
+flat_slice and block-pruned) and the inference row layout
+`optimize_render_layout`. Densification and its schedule (`update_by_iteration`) are ROADMAP
 queue 1.2b.
 """
 from __future__ import annotations
@@ -15,14 +16,15 @@ import numpy as np
 import torch
 
 from ..ops import pick_backend, pick_max_pairs
+from .block_render import block_size_for, build_block_cache, render_blocks
 from .corrector import Corrector
 from .counter import Counter
 from .gaussian import GaussianPoint, next_capacity
 from .sparse_optimizer import SparseOptimizer
 from .tensor_tree import TensorTree
 from .train_step import (StepConfig, fused_prepare_render,
-                         fused_prepare_train_step, fused_train_step,
-                         prepare_visibility)
+                         fused_prepare_train_step, fused_root_cull,
+                         fused_train_step, prepare_visibility)
 
 
 class LoG:
@@ -61,6 +63,17 @@ class LoG:
         self._render_bucket = None
         self._pair_bucket = None
         self._frame = None
+        # flat_slice frames: the capacity-axis weight-cull mask, refreshed
+        # every check_render_every frames, and the row layout / block cache
+        # of optimize_render_layout
+        self.check_render_every = 1
+        self._cull_mask_dev = None
+        self._cull_frame_i = 0
+        self._cull_bucket = None
+        self._block_cache = None
+        self._kb_bucket = None
+        self._layout_optimized = False
+        self._cull_seg_starts = None
 
     # ------------------------------------------------------------ basics
     @property
@@ -84,7 +97,7 @@ class LoG:
 
     def set_state(self, active_sh_degree=None, enable_sh=None,
                   min_resolution_pixel=None, current_depth=None,
-                  log_query=None):
+                  log_query=None, check_render_every=None):
         if active_sh_degree is not None or enable_sh is not None:
             if enable_sh:
                 self.gaussian.active_sh_degree = self.gaussian.max_sh_degree
@@ -102,6 +115,9 @@ class LoG:
                   f"{self.current_depth}")
         if log_query is not None:
             self.tree.log_query = bool(log_query)
+        if check_render_every is not None:
+            self.check_render_every = int(check_render_every)
+            self._cull_mask_dev = None
 
     # ------------------------------------------------------- device caches
     @property
@@ -129,6 +145,7 @@ class LoG:
         return min(next_capacity(n, 256), self.capacity)
 
     def _refresh_device_caches(self):
+        self._cull_mask_dev = None  # the state changed: stale cull mask
         cap = self.capacity
         dev = self.device
         if not self.tree.num_points:
@@ -158,6 +175,23 @@ class LoG:
             params = self.gaussian.params()
             for key in ("xyz", "scaling", "rotation"):
                 self._tree_dev[f"parent_{key}"] = params[key][parent_dev]
+            # per-point root-center cache (flat_slice cut)
+            root_rows = torch.clamp(self._tree_dev["root_id"].to(torch.int64),
+                                    0, cap - 1)
+            self._tree_dev["root_xyz"] = params["xyz"][root_rows]
+            if self._cull_seg_starts is not None:
+                # static tail-segment starts of the root_major layout; rows
+                # past the known roots start at num_points (dead rows)
+                seg = np.full(cap, self.num_points, np.int32)
+                seg[: self._cull_seg_starts.shape[0]] = self._cull_seg_starts
+                self._tree_dev["cull_seg_starts"] = torch.from_numpy(seg).to(dev)
+            if self._layout_optimized:
+                S = block_size_for(cap)
+                cols, meta = build_block_cache(params, self._tree_dev,
+                                               self._leaf_opt_dev,
+                                               self.num_points, S)
+                self._block_cache = {"cols": cols, "meta": meta, "S": S}
+                self._kb_bucket = None
 
     def tree_device(self):
         if self._tree_dev is None and self.tree.num_points:
@@ -416,13 +450,20 @@ class LoG:
     @torch.no_grad()
     def render_fused(self, camera: dict, background):
         """Inference frame: cut + compaction + render. Returns a dict of
-        device tensors: 'render' (3,H,W), 'alpha' (H,W), 'counts' (the kept
-        leaf/node counts and -1) and 'pair_total' (the frame's unclamped
-        pair demand, -1 on the reference backend).
+        device tensors: 'render' (3,H,W), 'alpha' (H,W), 'counts' and
+        'pair_total' (the frame's unclamped pair demand, -1 on the
+        reference backend). counts: the kept leaf/node counts, then -1 (the
+        generic frame) or the pair demand (flat_slice), then the eligible
+        blocks (the block-pruned frame).
 
         The slice budget comes from the first frame's prepare pass, then
         from the previous frame's counts (1.2x headroom, re-bucketed when
-        the need grows or halves), as in the JAX package.
+        the need grows or halves), as in the JAX package; so do the pair
+        budget (from counts[2]) and the block budget (counts[3]).
+        With cut_method 'flat_slice' the weight cull runs on the capacity
+        axis (`fused_root_cull`) every check_render_every frames; after
+        optimize_render_layout, with SH degree 0, the frame is the
+        block-pruned one (model/block_render.py).
         """
         from ..render.renderer import camera_device
 
@@ -452,6 +493,14 @@ class LoG:
                 pb = self._pair_bucket
                 if pb is None or pneed > pb or pneed * 2 < pb:
                     self._pair_bucket = pneed
+            # the block path's bucket: counts[3], last frame's eligible
+            # blocks (1.1x headroom, in steps of 16)
+            if len(c) > 3 and self._block_cache is not None:
+                B = self.capacity // self._block_cache["S"]
+                kb = self._kb_bucket or B
+                need = min(B, max(16, -(-int(c[3] * 1.1) // 16) * 16))
+                if need > kb or need * 2 < kb:
+                    self._kb_bucket = need
         # static alive bucket: the capacity-axis passes run over [:cap_sort]
         cap_sort = min(self.capacity,
                        -(-self.num_points // (1 << 18)) * (1 << 18))
@@ -460,24 +509,60 @@ class LoG:
         tree_arrays, num_levels = self._tree_args(stage_has_tree)
         max_pairs = pick_max_pairs(k_vis, per_point=6)
         frame_pairs = min(max_pairs, self._pair_bucket or max_pairs)
-        render, alpha, counts, pair_total = fused_prepare_render(
-            self.gaussian.params(), tree_arrays, cam, self.num_points,
-            self._leaf_opt_dev, float(self.tree.min_resolution_pixel),
-            self.current_depth,
-            torch.as_tensor(np.asarray(background, np.float32),
-                            device=self.device),
-            cam["image_height"], cam["image_width"],
-            k_visible=k_vis, sh_degree=self.gaussian.active_sh_degree,
-            stage_has_tree=stage_has_tree, num_levels=num_levels,
-            backend=backend,
-            max_pairs=frame_pairs,
-            check_scale=int(self.check_render_scale),
-            cut_method=self.cut_method if stage_has_tree else "traverse",
-            n_roots=self.n_roots_bucket if stage_has_tree else 0,
-            prep_backend=backend,
-            prep_max_pairs=pick_max_pairs(self.capacity, per_point=1),
-            cap_sort=cap_sort,
-        )
+        bg = torch.as_tensor(np.asarray(background, np.float32),
+                             device=self.device)
+        flat_slice = stage_has_tree and self.cut_method == "flat_slice"
+        # the block-pruned frame needs the optimized layout, SH degree 0
+        # and a capacity past 2^16; otherwise the fused flat_slice frame
+        use_blocks = (self._layout_optimized and self._block_cache is not None
+                      and flat_slice and self.gaussian.active_sh_degree == 0
+                      and backend == "tiled" and self.capacity >= 1 << 16)
+        w_full = None
+        if flat_slice:
+            # cull first, as the reference orders it: the capacity-axis
+            # mask is refreshed every check_render_every frames (every
+            # frame by default), at full capacity for the block path
+            cull_bucket = 0 if use_blocks else cap_sort
+            if (self._cull_mask_dev is None
+                    or self._cull_bucket != cull_bucket
+                    or self._cull_frame_i % self.check_render_every == 0):
+                self._cull_mask_dev = fused_root_cull(
+                    self.gaussian.params(), tree_arrays, cam,
+                    self.num_points, cam["image_height"], cam["image_width"],
+                    prep_backend=backend,
+                    prep_max_pairs=pick_max_pairs(self.capacity, per_point=1),
+                    check_scale=int(self.check_render_scale),
+                    n_roots=self.n_roots_bucket, cap_sort=cull_bucket,
+                )
+                self._cull_bucket = cull_bucket
+            self._cull_frame_i += 1
+            w_full = self._cull_mask_dev
+        if use_blocks:
+            B = self.capacity // self._block_cache["S"]
+            render, alpha, counts = render_blocks(
+                self._block_cache["cols"], self._block_cache["meta"], cam,
+                float(self.tree.min_resolution_pixel), self.current_depth, bg,
+                cam["image_height"], cam["image_width"],
+                k_blocks=self._kb_bucket or B, k_visible=k_vis,
+                max_pairs=frame_pairs, w_full=w_full,
+            )
+            pair_total = counts[2]
+        else:
+            render, alpha, counts, pair_total = fused_prepare_render(
+                self.gaussian.params(), tree_arrays, cam, self.num_points,
+                self._leaf_opt_dev, float(self.tree.min_resolution_pixel),
+                self.current_depth, bg, cam["image_height"],
+                cam["image_width"], k_visible=k_vis,
+                sh_degree=self.gaussian.active_sh_degree,
+                stage_has_tree=stage_has_tree, num_levels=num_levels,
+                backend=backend, max_pairs=frame_pairs,
+                check_scale=int(self.check_render_scale),
+                cut_method=self.cut_method if stage_has_tree else "traverse",
+                n_roots=self.n_roots_bucket if stage_has_tree else 0,
+                prep_backend=backend,
+                prep_max_pairs=pick_max_pairs(self.capacity, per_point=1),
+                cap_sort=cap_sort, w_full=w_full,
+            )
         self._frame = {"counts": counts, "pair_total": pair_total,
                        "k_visible": k_vis, "max_pairs": frame_pairs}
         return {"render": render, "alpha": alpha, "counts": counts,
@@ -485,13 +570,115 @@ class LoG:
 
     def frame_stats(self) -> dict:
         """Telemetry of the last render_fused frame (host values): the
-        kept cut (leaf + node points), the slice bucket, the pair budget
-        and the unclamped pair demand."""
+        kept cut (leaf + node points), the slice bucket, the pair budget,
+        the unclamped pair demand and, from the block-pruned frame, the
+        eligible blocks (None otherwise)."""
         f = self._frame
         c = f["counts"].cpu().tolist()
         return {"cut": c[0] + c[1], "k_visible": f["k_visible"],
                 "max_pairs": f["max_pairs"],
-                "pair_total": int(f["pair_total"])}
+                "pair_total": int(f["pair_total"]),
+                "eligible_blocks": c[3] if len(c) > 3 else None}
+
+    # ------------------------------------------------- render layout / blocks
+    def optimize_render_layout(self, morton_bits: int = 10,
+                               mode: str = "root_major"):
+        """Reorder the rows for fast inference (host numpy, as the JAX
+        package does it). Inference only: optimizer moments are not
+        remapped.
+
+        mode="root_major" (default): the roots first (in Morton order), then
+        each root's descendants as one contiguous tail segment (in root
+        order, depth-minor). The segments make the weight cull's
+        capacity-axis expansion a scatter-max + cummax
+        (train_step.expand_weight_full), and blocks stay spatially tight
+        for the block-pruned frame.
+        mode="depth_major": rows depth-major, Morton-minor, so coarse cuts
+        map to a level prefix.
+        """
+        if self.optimizer is not None:
+            # AssertionError, as the JAX package's assert: apps/train.py
+            # catches it to keep the unpruned frame with training state
+            raise AssertionError("optimize_render_layout is inference-only: "
+                                 "optimizer moments are not remapped")
+        n = self.num_points
+        if n == 0 or self.tree.num_points == 0:
+            return
+        t = self.tree
+        t.ensure_root_id()
+        xyz = self.gaussian.get("xyz")[:n].cpu().numpy()
+        lo = xyz.min(axis=0)
+        span = np.maximum(xyz.max(axis=0) - lo, 1e-9)
+        q = np.minimum(
+            ((xyz - lo) / span * (1 << morton_bits)).astype(np.int64),
+            (1 << morton_bits) - 1,
+        )
+        morton = np.zeros(n, np.int64)
+        for b in range(morton_bits):
+            for ax in range(3):
+                morton |= ((q[:, ax] >> b) & 1) << (3 * b + ax)
+        if mode == "root_major":
+            is_tail = (t.index_parent[:n] >= 0).astype(np.int64)
+            # rank roots by morton; every row inherits its root's rank
+            root_rows = np.flatnonzero(~is_tail.astype(bool))
+            rank_of_root_row = np.full(n, n, np.int64)
+            rank_of_root_row[root_rows[np.argsort(morton[root_rows],
+                                                  kind="stable")]] = (
+                np.arange(root_rows.size, dtype=np.int64)
+            )
+            rr = rank_of_root_row[t.root_id[:n]]
+            perm = np.lexsort(
+                (morton, t.depth[:n].astype(np.int64), rr, is_tail)
+            ).astype(np.int64)
+        else:
+            key = t.depth[:n].astype(np.int64) << (3 * morton_bits)
+            key |= morton
+            perm = np.argsort(key, kind="stable").astype(np.int64)
+        inv = np.empty(n, np.int64)
+        inv[perm] = np.arange(n, dtype=np.int64)
+
+        def remap_vals(a):
+            out = np.asarray(a).copy()
+            pos = out >= 0
+            out[pos] = inv[out[pos]]
+            return out
+
+        arrays = self.gaussian.to_numpy()
+        self.gaussian.set_numpy({k: v[perm] for k, v in arrays.items()})
+        perm_dev = torch.from_numpy(perm).to(self.device)
+        for key_c, val in list(self.counter.data.items()):
+            if val.dim() >= 1 and val.shape[0] >= n:
+                val = val.clone()
+                val[:n] = val[:n][perm_dev]
+                self.counter.data[key_c] = val
+        t.node_index = t.node_index[perm]
+        t.index_parent = remap_vals(t.index_parent[perm])
+        t.local_index = t.local_index[perm]
+        t.depth = t.depth[perm]
+        t.root_id = remap_vals(t.root_id[perm])
+        t.root_index = np.sort(remap_vals(t.root_index))
+        t.tree = remap_vals(t.tree)
+        self._cull_seg_starts = None
+        if mode == "root_major":
+            # static tail-segment starts: the segment of root rank j (its
+            # row: roots are the prefix) begins at seg_starts[j]; empty
+            # segments point at the next start
+            n_roots = int((t.index_parent[:n] == -1).sum())
+            tail_rids = t.root_id[n_roots:n].astype(np.int64)
+            if not (np.diff(tail_rids) >= 0).all():
+                raise AssertionError("tail rows are not grouped by root")
+            self._cull_seg_starts = (
+                n_roots
+                + np.searchsorted(tail_rids, np.arange(n_roots), side="left")
+            ).astype(np.int32)
+        self._tree_dev = None
+        self._block_cache = None
+        self._render_bucket = None
+        self._frame = None
+        self._layout_optimized = True
+        self._refresh_device_caches()
+        print(f"[{self.__class__.__name__}] render layout optimized: "
+              f"{mode}/morton over {n} rows")
 
     # ----------------------------------------------------------- checkpoint
     def state_dict(self) -> dict:
@@ -567,6 +754,10 @@ class LoG:
         self._pair_bucket = None
         self._frame = None
         self._corr_dev = None
+        # freshly loaded state undoes any earlier layout optimization
+        self._layout_optimized = False
+        self._cull_seg_starts = None
+        self._block_cache = None
         self._refresh_device_caches()
         return True
 

@@ -114,11 +114,25 @@ def flat_cut(index_parent, node_index, depth, root_id, radius2d,
     radius does not grow from parent to child (the parent is then the
     smallest ancestor); radius2d_parent comes from the parent-attribute
     cache, so the only gather left is root_visible[root_id]."""
+    root_vis = root_visible[torch.clamp(root_id, min=0).to(torch.int64)]
+    return flat_cut_pre(index_parent, node_index, depth, root_vis, radius2d,
+                        radius2d_parent, alive_mask, min_resolution_pixel,
+                        max_depth)
+
+
+def flat_cut_pre(index_parent, node_index, depth, root_in_frustum, radius2d,
+                 radius2d_parent, alive_mask, min_resolution_pixel,
+                 max_depth):
+    """`flat_cut` without the gather: root_in_frustum is the (cap,) flag of
+    each point's ROOT (the frustum test of the cached root center in the
+    flat_slice frame, or root_visible[root_id]), so this is elementwise.
+    Without the weight cull it gives a superset of the flat cut; the
+    flat_slice frame applies the cull before (w_full) or after the
+    compaction."""
     is_root = index_parent == -1
     is_leaf = node_index == -1
     small = radius2d < min_resolution_pixel
     parent_big = radius2d_parent >= min_resolution_pixel
-    root_vis = root_visible[torch.clamp(root_id, min=0).to(torch.int64)]
-    reach = root_vis & torch.where(is_root, True,
-                                   parent_big & (depth <= max_depth))
+    reach = root_in_frustum & torch.where(is_root, True,
+                                          parent_big & (depth <= max_depth))
     return alive_mask & reach & (small | is_leaf | (depth >= max_depth))

@@ -15,7 +15,10 @@ agree with it.
 Serving: `fused_prepare_render` is the inference frame of the demo/val/viewer
 path: frustum test -> root weight-cull render -> LoD cut -> compaction of the
 cut into a static slice -> activation + SH -> tiled render, under
-torch.no_grad().
+torch.no_grad(). Its flat_slice branch (`_flat_slice_frame`) projects the
+capacity axis once, compacts bf16-packed splat columns (K6 under
+LOG_TPU_COMPACT=pallas) and renders through K3p, K4 and K5;
+`fused_root_cull` computes its capacity-axis weight-cull mask.
 """
 from __future__ import annotations
 
@@ -25,14 +28,17 @@ from dataclasses import dataclass, field
 import torch
 from torch.profiler import record_function
 
+from ..ops import compact
 from ..ops import gaussian_math as gm
 from ..ops import rasterize_ref
+from ..ops import rasterize_tiled as rt
+from ..ops.projection import SplatCols, project_gaussians_cols
 from ..ops.rasterize_tiled import rasterize_tiled
 from ..ops.sh import eval_sh, sh_to_rgb
 from ..ops.ssim import ssim_loss, ssim_map
 from .counter import update_counter
 from .sparse_optimizer import dense_adam_step, sparse_adam_step
-from .tensor_tree import flat_cut, traverse_cut
+from .tensor_tree import flat_cut, flat_cut_pre, traverse_cut
 
 UNIT_QUAT = (1.0, 0.0, 0.0, 0.0)
 
@@ -192,6 +198,228 @@ def prepare_visibility(params: dict, tree_arrays: dict, cam: dict, n_alive,
     return keep_leaf, keep_node, counts
 
 
+def _compact_flat_cols_sort(cols: dict, keep, k: int):
+    """Compaction by sort over 1-D columns of mixed dtype (f32, and int32
+    holding u32 bit patterns): one sort of the position key (kept rows
+    first), then k-row gathers. Lanes past the kept count are zero (a zero
+    word unpacks to opacity 0 / radius 0) with index = cap. Returns
+    (slices, index, lane_valid)."""
+    cap = keep.shape[0]
+    pos = torch.arange(cap, dtype=torch.int64, device=keep.device)
+    key_s, order = torch.sort(torch.where(keep, pos, cap + pos))
+    lane_valid = key_s[:k] < cap
+    order = order[:k]
+    index = torch.where(lane_valid, key_s[:k], cap).to(torch.int32)
+    slices = {n: torch.where(lane_valid, v[order],
+                             torch.zeros((), dtype=v.dtype, device=v.device))
+              for n, v in cols.items()}
+    return slices, index, lane_valid
+
+
+def _compact_flat_cols(cols: dict, keep, k: int):
+    """The render frame's column compaction: LOG_TPU_COMPACT=pallas takes
+    the stream-compaction kernel K6 (ops/compact.py) where the capacity
+    axis meets the JAX package's contract for it (a multiple of 8192 rows,
+    fewer than 2^24); otherwise the sort compaction. Same results."""
+    cap = keep.shape[0]
+    if (os.environ.get("LOG_TPU_COMPACT") == "pallas" and cap % 8192 == 0
+            and cap < 1 << 24):
+        return compact.stream_compact_cols(cols, keep, k)
+    return _compact_flat_cols_sort(cols, keep, k)
+
+
+def _use_packed_pairs() -> bool:
+    env = os.environ.get("LOG_TPU_PACK_PAIRS")
+    if env is not None:
+        return env not in ("0", "false", "")
+    return True
+
+
+def _render_tiled_cols(splat_cols, colors_cols, background, image_height: int,
+                       image_width: int, max_pairs: int, prefix_mask,
+                       pack_pairs=None):
+    """Column-native inference render, no stats. Packed (default): the
+    six-payload pair sort, K4 and K5 (`render_pairs_packed`); otherwise the
+    full-precision pair rows and K1. LOG_TPU_PACK_PAIRS=0 selects the
+    latter when pack_pairs is None. Returns (render, alpha, pair_total)."""
+    H, W = image_height, image_width
+    if pack_pairs is None:
+        pack_pairs = _use_packed_pairs()
+    if pack_pairs:
+        color, tfinal, total = rt.render_pairs_packed(
+            splat_cols, colors_cols, background, H, W, max_pairs, prefix_mask)
+        return color[:, :H, :W], 1.0 - tfinal[:H, :W], total
+    pairs = rt.build_pairs(splat_cols, colors_cols, H, W, max_pairs,
+                           runs_tail_only=True, active_prefix=prefix_mask)
+    color, tfinal, *_ = rt.rasterize_forward(
+        pairs["pair_data"], pairs["tile_start"], pairs["tile_count"],
+        background, pairs["tiles_x"], pairs["tiles_y"], False)
+    return color[:, :H, :W], 1.0 - tfinal[:H, :W], pairs["total"]
+
+
+def _render_packed_splats(splats, rgb, keep, k_visible: int, background,
+                          image_height: int, image_width: int,
+                          max_pairs: int, root_id=None, cull=None):
+    """The packed frame's tail (flat_slice and block-pruned): bf16-pack the
+    splat columns of `splats` (SplatCols) and `rgb` (3 columns), with the
+    radius inflated by 2^-7 first so that rounding can only grow a tile
+    rect; compact them by keep (`_compact_flat_cols`); with root_id given,
+    cull(root_id of the slice, prefix mask) gives the valid lanes; unpack
+    and render through K3p, K4 and K5. Returns (render, alpha,
+    pair_total)."""
+    sort_cols = {
+        "px": splats.px, "py": splats.py, "depth": splats.depth,
+        "p1": rt.pack2_bf16(splats.cxx, splats.cxy),
+        "p2": rt.pack2_bf16(splats.cyy, splats.opacity),
+        "p3": rt.pack2_bf16(rgb[0], rgb[1]),
+        "p4": rt.pack2_bf16(rgb[2], splats.radius * (1.0 + 2.0 ** -7)),
+    }
+    if root_id is not None:
+        sort_cols["root_id"] = root_id
+    cols_s, _, lane_prefix = _compact_flat_cols(sort_cols, keep, k_visible)
+    lane_valid = (lane_prefix if root_id is None
+                  else cull(cols_s["root_id"], lane_prefix))
+    cxx, cxy = rt.unpack2_bf16(cols_s["p1"])
+    cyy, op_sl = rt.unpack2_bf16(cols_s["p2"])
+    r_sl, g_sl = rt.unpack2_bf16(cols_s["p3"])
+    b_sl, rad_sl = rt.unpack2_bf16(cols_s["p4"])
+    valid = lane_valid & (rad_sl > 0)
+    splat_cols = SplatCols(
+        px=cols_s["px"], py=cols_s["py"], cxx=cxx, cxy=cxy, cyy=cyy,
+        opacity=torch.where(valid, op_sl, 0.0), depth=cols_s["depth"],
+        radius=torch.where(valid, rad_sl, 0.0), valid=valid,
+    )
+    return _render_tiled_cols(splat_cols, (r_sl, g_sl, b_sl), background,
+                              image_height, image_width, max_pairs,
+                              lane_prefix, pack_pairs=True)
+
+
+def _flat_slice_frame(params: dict, tree_arrays: dict, cam: dict, n_alive,
+                      is_leaf_opt, min_resolution_pixel, current_depth,
+                      background, image_height: int, image_width: int,
+                      k_visible: int, sh_degree: int, need: list, mode: str,
+                      backend: str, max_pairs: int, check_scale: int,
+                      n_roots: int, prep_backend: str, prep_max_pairs: int,
+                      use_filter: bool, check_cull: bool, pack_pairs,
+                      w_full):
+    """The flat_slice frame: the gather-free pre-cut (`flat_cut_pre` with
+    the cached root centers) and the weight cull folded in before the
+    compaction (w_full) or applied after it on the slice axis.
+
+    Returns ("frame", (render, alpha, counts, pair_total)) from the packed
+    and the column paths, or ("slices", (slices, lane_valid, lane_prefix,
+    counts)) for the shared slice render of fused_prepare_render.
+    """
+    cap = params["xyz"].shape[0]
+    dev = params["xyz"].device
+    alive = torch.arange(cap, device=dev) < n_alive
+    rx = tree_arrays["root_xyz"]
+    rpx, rpy, rpz, _ = gm.project_ndc_c(rx[:, 0], rx[:, 1], rx[:, 2],
+                                        cam["full_proj"])
+    root_frus = gm.frustum_flag_c(rpx, rpy, rpz, padding=0.5) & alive
+    cam_args = (cam["world_view"], cam["full_proj"], cam["focal_x"],
+                cam["focal_y"], cam["tan_fovx"], cam["tan_fovy"])
+    radius2d_parent = gm.compute_radius2d(
+        tree_arrays["parent_xyz"], torch.exp(tree_arrays["parent_scaling"]),
+        _normalize_rows(tree_arrays["parent_rotation"]), *cam_args,
+    )
+    R = n_roots if 0 < n_roots <= cap else cap
+    per_frame_cull = check_cull and w_full is None
+
+    def cut(radius2d):
+        keep = flat_cut_pre(
+            tree_arrays["index_parent"], tree_arrays["node_index"],
+            tree_arrays["depth"], root_frus, radius2d, radius2d_parent, alive,
+            min_resolution_pixel, current_depth,
+        )
+        if w_full is not None:
+            keep = keep & w_full
+        counts = torch.stack([(keep & is_leaf_opt).sum(),
+                              (keep & ~is_leaf_opt).sum()])
+        return keep, counts
+
+    def culled(lane_prefix, root_id_sl, opacity_r, scaling_r, rotation_r):
+        """The slice-axis weight cull: root weight render, then a k-sized
+        gather by each lane's root."""
+        if not per_frame_cull:
+            return lane_prefix
+        cand = (gm.frustum_flag_c(rpx[:R], rpy[:R], rpz[:R], padding=0.5)
+                & (tree_arrays["index_parent"][:R] == -1) & alive[:R])
+        weight_ok = _check_root_weights(
+            params["xyz"][:R], opacity_r, scaling_r, rotation_r, cand, cam,
+            image_height, image_width, mode, prep_backend, prep_max_pairs,
+            check_scale,
+        )
+        rid = torch.clamp(root_id_sl.to(torch.int64), 0, R - 1)
+        return lane_prefix & weight_ok[rid]
+
+    use_cols = backend == "tiled"
+    packed = pack_pairs if pack_pairs is not None else _use_packed_pairs()
+    if use_cols and packed:
+        # project the whole capacity axis once (the cut radius and the
+        # render splats from one cov2d), evaluate SH there, then pack,
+        # compact and render the splat columns
+        op_full = torch.sigmoid(params["opacity"][:, 0])
+        xyz, s_full, q = (params["xyz"], torch.exp(params["scaling"]),
+                          params["rotation"])
+        splat_full, radius2d = project_gaussians_cols(
+            xyz[:, 0], xyz[:, 1], xyz[:, 2], s_full[:, 0], s_full[:, 1],
+            s_full[:, 2], q[:, 0], q[:, 1], q[:, 2], q[:, 3], op_full,
+            *cam_args, image_height, image_width, mode=mode,
+            use_filter=use_filter, active_mask=alive, tight_radius=True,
+            with_cut_radius=True,
+        )
+        keep, counts = cut(radius2d)
+        col = sh_to_rgb(params["colors"])
+        if sh_degree > 0 and "shs" in params:
+            dirs = _normalize_rows(xyz - cam["camera_center"][None])
+            col = col + eval_sh(dirs, params["shs"], degree=sh_degree)
+        rot_r = _normalize_rows(q[:R])
+        render, alpha, pair_total = _render_packed_splats(
+            splat_full, col.unbind(1), keep, k_visible, background,
+            image_height, image_width, max_pairs,
+            root_id=tree_arrays["root_id"] if per_frame_cull else None,
+            cull=lambda rid, prefix: culled(prefix, rid, op_full[:R],
+                                            s_full[:R], rot_r),
+        )
+        # counts[2]: the frame's unclamped pair demand, which sizes the
+        # next frames' pair budget
+        return "frame", (render, alpha, torch.cat([counts, pair_total[None]]),
+                         pair_total)
+
+    scaling_full = torch.exp(params["scaling"])
+    rotation_full = _normalize_rows(params["rotation"])
+    radius2d = gm.compute_radius2d(params["xyz"], scaling_full, rotation_full,
+                                   *cam_args)
+    keep, counts = cut(radius2d)
+    cols_in = {kk: params[kk] for kk in need}
+    cols_in["root_id"] = tree_arrays["root_id"][:, None]
+    slices, _, lane_prefix = _compact_slices_gather(cols_in, keep, k_visible)
+    root_id_sl = slices.pop("root_id")[:, 0]
+    lane_valid = culled(lane_prefix, root_id_sl,
+                        torch.sigmoid(params["opacity"][:R, 0]),
+                        scaling_full[:R], rotation_full[:R])
+    if not (use_cols and "shs" not in need):
+        return "slices", (slices, lane_valid, lane_prefix, counts)
+    # the column path at full precision (pack_pairs=False)
+    x, y, z = slices["xyz"].unbind(1)
+    sx, sy, sz = torch.exp(slices["scaling"]).unbind(1)
+    qw, qx, qy, qz = slices["rotation"].unbind(1)
+    splat_cols = project_gaussians_cols(
+        x, y, z, sx, sy, sz, qw, qx, qy, qz,
+        torch.sigmoid(slices["opacity"][:, 0]), *cam_args, image_height,
+        image_width, mode=mode, use_filter=use_filter,
+        active_mask=lane_valid, tight_radius=True,
+    )
+    render, alpha, pair_total = _render_tiled_cols(
+        splat_cols, tuple(sh_to_rgb(slices["colors"]).unbind(1)), background,
+        image_height, image_width, max_pairs, lane_prefix,
+        pack_pairs=pack_pairs,
+    )
+    return "frame", (render, alpha, torch.cat([counts, pair_total[None]]),
+                     pair_total)
+
+
 @torch.no_grad()
 def fused_prepare_render(params: dict, tree_arrays: dict, cam: dict, n_alive,
                          is_leaf_opt, min_resolution_pixel, current_depth,
@@ -202,21 +430,30 @@ def fused_prepare_render(params: dict, tree_arrays: dict, cam: dict, n_alive,
                          check_scale: int = 1, cut_method: str = "flat",
                          n_roots: int = 0, prep_backend: str = "tiled",
                          prep_max_pairs: int = 1 << 20,
-                         use_filter: bool = False, cap_sort: int = 0):
+                         use_filter: bool = False, check_cull: bool = True,
+                         pack_pairs=None, cap_sort: int = 0, w_full=None):
     """Inference frame: LoD cut + slice compaction + activation + render.
     k_visible is the static cut budget; overflow truncates the cut for that
     frame. Returns (render (3,H,W), alpha (H,W), counts (3,), pair_total):
-    counts holds the kept leaf/node counts and -1, as in the JAX package,
-    whose generic branch feeds no pair demand back into the next frame's
-    budget; pair_total is the frame's unclamped pair demand for telemetry
-    (-1 on the reference backend).
+    pair_total is the frame's unclamped pair demand for telemetry (-1 on
+    the reference backend). counts holds the kept leaf/node counts and, as
+    in the JAX package, -1 from the generic branch and the pair demand from
+    the flat_slice column paths (the next frame's pair budget is sized from
+    it).
+
+    cut_method='flat_slice': the gather-free pre-cut via the per-point root
+    centers (tree_arrays['root_xyz']); the weight cull either comes in as
+    w_full, a (cap,) bool mask from `fused_root_cull` folded into the cut
+    before the compaction, or (check_cull and no w_full) runs per frame on
+    the slice axis after it. Its default path packs the splat columns to
+    bf16 pairs before the compaction and renders through K3p, K4 and K5;
+    pack_pairs=False (or LOG_TPU_PACK_PAIRS=0) keeps full-precision
+    columns and K1, and SH with pack_pairs=False takes the slices path.
+    check_cull=False skips the cull (a conservative occlusion test).
     """
-    if cut_method == "flat_slice" and stage_has_tree:
-        raise NotImplementedError(
-            "cut_method='flat_slice' (and its packed column render) is the "
-            "next render slice: ROADMAP queue 1, item 3"
-        )
     cap = params["xyz"].shape[0]
+    if w_full is not None and w_full.shape[0] == cap and 0 < cap_sort < cap:
+        w_full = w_full[:cap_sort]
     if 0 < cap_sort < cap:
         # points past the alive bucket are dead by construction, so the
         # capacity-axis passes run over [:cap_sort] only
@@ -231,14 +468,28 @@ def fused_prepare_render(params: dict, tree_arrays: dict, cam: dict, n_alive,
     need = ["xyz", "colors", "scaling", "opacity", "rotation"]
     if sh_degree > 0 and "shs" in params:
         need.append("shs")
-    keep_leaf, keep_node, counts = prepare_visibility(
-        params, tree_arrays, cam, n_alive, is_leaf_opt, min_resolution_pixel,
-        current_depth, image_height, image_width, stage_has_tree, num_levels,
-        mode, prep_backend, prep_max_pairs, check_scale, cut_method, n_roots,
-    )
-    slices, _, lane_valid = _compact_slices_gather(
-        {kk: params[kk] for kk in need}, keep_leaf | keep_node, k_visible
-    )
+    if cut_method == "flat_slice" and stage_has_tree:
+        kind, res = _flat_slice_frame(
+            params, tree_arrays, cam, n_alive, is_leaf_opt,
+            min_resolution_pixel, current_depth, background, image_height,
+            image_width, k_visible, sh_degree, need, mode, backend,
+            max_pairs, check_scale, n_roots, prep_backend, prep_max_pairs,
+            use_filter, check_cull, pack_pairs, w_full,
+        )
+        if kind == "frame":
+            return res
+        slices, lane_valid, lane_prefix, counts = res
+    else:
+        keep_leaf, keep_node, counts = prepare_visibility(
+            params, tree_arrays, cam, n_alive, is_leaf_opt,
+            min_resolution_pixel, current_depth, image_height, image_width,
+            stage_has_tree, num_levels, mode, prep_backend, prep_max_pairs,
+            check_scale, cut_method, n_roots,
+        )
+        slices, _, lane_valid = _compact_slices_gather(
+            {kk: params[kk] for kk in need}, keep_leaf | keep_node, k_visible
+        )
+        lane_prefix = lane_valid
     scaling = torch.exp(slices["scaling"])
     opacity = torch.sigmoid(slices["opacity"][:, 0])
     rotation = slices["rotation"] / torch.linalg.norm(
@@ -262,7 +513,7 @@ def fused_prepare_render(params: dict, tree_arrays: dict, cam: dict, n_alive,
     if backend == "tiled":
         out = rasterize_tiled(
             **kwargs, max_pairs=max_pairs, with_stats=False,
-            tight_radius=True, runs_tail_only=True, prefix_mask=lane_valid,
+            tight_radius=True, runs_tail_only=True, prefix_mask=lane_prefix,
         )
     else:
         out = rasterize_ref.rasterize(**kwargs)
@@ -270,6 +521,72 @@ def fused_prepare_render(params: dict, tree_arrays: dict, cam: dict, n_alive,
     counts = torch.cat([counts, minus_one])
     pair_total = out.get("pair_total", minus_one[0])
     return out["render"], out["alpha"], counts, pair_total
+
+
+@torch.no_grad()
+def fused_root_cull(params: dict, tree_arrays: dict, cam: dict, n_alive,
+                    image_height: int, image_width: int,
+                    mode: str = "antialias", prep_backend: str = "tiled",
+                    prep_max_pairs: int = 1 << 20, check_scale: int = 1,
+                    n_roots: int = 0, cap_sort: int = 0):
+    """The capacity-axis weight-cull mask of the flat_slice frame: the root
+    check render, then each row takes its root's verdict
+    (`expand_weight_full`). Returns (cap_sort or cap,) bool for
+    fused_prepare_render(w_full=...)."""
+    cap = params["xyz"].shape[0]
+    if 0 < cap_sort < cap:
+        params = {k: v[:cap_sort] for k, v in params.items()}
+        tree_arrays = {
+            k: (v[:cap_sort] if v.dim() >= 1 and v.shape[0] == cap else v)
+            for k, v in tree_arrays.items()
+        }
+        cap = cap_sort
+    dev = params["xyz"].device
+    alive = torch.arange(cap, device=dev) < n_alive
+    R = n_roots if 0 < n_roots <= cap else cap
+    x = params["xyz"][:R]
+    px, py, pz, _ = gm.project_ndc_c(x[:, 0], x[:, 1], x[:, 2],
+                                     cam["full_proj"])
+    cand = (gm.frustum_flag_c(px, py, pz, padding=0.5)
+            & (tree_arrays["index_parent"][:R] == -1) & alive[:R])
+    weight_ok = _check_root_weights(
+        x, torch.sigmoid(params["opacity"][:R, 0]),
+        torch.exp(params["scaling"][:R]),
+        _normalize_rows(params["rotation"][:R]), cand, cam, image_height,
+        image_width, mode, prep_backend, prep_max_pairs, check_scale,
+    )
+    return expand_weight_full(weight_ok, tree_arrays, cap, R)
+
+
+def expand_weight_full(weight_ok, tree_arrays: dict, cap: int, R: int):
+    """Expand the per-root weight-cull verdict (R,) to every row (cap,).
+
+    Default: one gather weight_ok[root_id]. With root-contiguous tail
+    segments (tree_arrays["cull_seg_starts"], from
+    LoG.optimize_render_layout's root_major layout): a scatter-max of
+    rank-coded verdicts at the R segment starts and one cummax broadcast
+    each segment's code over its rows. Empty segments share a start with
+    the next one; the max picks the larger rank, the owner of the rows.
+    """
+    seg = tree_arrays.get("cull_seg_starts")
+    if seg is None:
+        rid = torch.clamp(tree_arrays["root_id"].to(torch.int64), 0, R - 1)
+        return weight_ok[rid]
+    dev = weight_ok.device
+    ranks = torch.arange(R, dtype=torch.int32, device=dev)
+    code = (ranks << 2) | (weight_ok.to(torch.int32) << 1) | 1
+    # starts outside [0, cap) drop into a spare slot, as mode="drop" does
+    idx = seg[:R].to(torch.int64)
+    idx = torch.where((idx >= 0) & (idx < cap), idx, cap)
+    b = torch.zeros((cap + 1,), dtype=torch.int32, device=dev)
+    b.scatter_reduce_(0, idx, code, reduce="amax")
+    m = torch.cummax(b[:cap], 0).values
+    w_tail = ((m >> 1) & 1).to(torch.bool)
+    is_root_row = tree_arrays["index_parent"] == -1
+    w_prefix = torch.zeros((cap,), dtype=torch.bool, device=dev)
+    w_prefix[:min(R, cap)] = weight_ok[:cap]
+    row_in_prefix = torch.arange(cap, device=dev) < R
+    return torch.where(row_in_prefix & is_root_row, w_prefix, w_tail)
 
 
 # --------------------------------------------------------------------------

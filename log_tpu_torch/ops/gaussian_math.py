@@ -209,20 +209,33 @@ def inverse_cov2d(cxx, cxy, cyy, eps: float = 0.0):
     return cyy * inv_det, -cxy * inv_det, cxx * inv_det, det
 
 
+def cut_radius(cxx, cxy, cyy, visible):
+    """The LoD cut's radius of a raw cov2d: 'clamp' low-pass, then
+    3 sqrt(lambda_max); 0 where not visible or degenerate."""
+    cxx, cxy, cyy = dilate_cov2d(cxx, cxy, cyy, mode="clamp")
+    det = cxx * cyy - cxy * cxy
+    return torch.where(visible & (det > 0), cov2d_radius(cxx, cxy, cyy), 0.0)
+
+
+def compute_radius2d_c(x, y, z, cov3d_c, world_view, full_proj, focal_x,
+                       focal_y, tan_fovx, tan_fovy, padding: float = 0.3):
+    """`compute_radius2d` on position columns and a cov3d tuple."""
+    px, py, pz, _ = project_ndc_c(x, y, z, full_proj)
+    visible = frustum_flag_c(px, py, pz, padding=padding)
+    tx, ty, tz = transform_point_c(x, y, z, world_view)
+    cxx, cxy, cyy = ewa_cov2d_c(
+        cov3d_c, tx, ty, tz, world_view, focal_x, focal_y, tan_fovx, tan_fovy
+    )
+    return cut_radius(cxx, cxy, cyy, visible)
+
+
 def compute_radius2d(xyz, scaling, rotation, world_view, full_proj, focal_x,
                      focal_y, tan_fovx, tan_fovy, padding: float = 0.3):
     """Per-point projected pixel radius with visibility gating: radius 0
     outside the padded NDC frustum or for a degenerate cov2d. 'clamp'
     low-pass, like LoG's compute_radius kernel."""
-    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
-    px, py, pz, _ = project_ndc_c(x, y, z, full_proj)
-    visible = frustum_flag_c(px, py, pz, padding=padding)
-    cov3d_c = build_cov3d_c(scaling, rotation)
-    tx, ty, tz = transform_point_c(x, y, z, world_view)
-    cxx, cxy, cyy = ewa_cov2d_c(
-        cov3d_c, tx, ty, tz, world_view, focal_x, focal_y, tan_fovx, tan_fovy
+    return compute_radius2d_c(
+        xyz[..., 0], xyz[..., 1], xyz[..., 2],
+        build_cov3d_c(scaling, rotation), world_view, full_proj, focal_x,
+        focal_y, tan_fovx, tan_fovy, padding,
     )
-    cxx, cxy, cyy = dilate_cov2d(cxx, cxy, cyy, mode="clamp")
-    radius = cov2d_radius(cxx, cxy, cyy)
-    det = cxx * cyy - cxy * cxy
-    return torch.where(visible & (det > 0), radius, 0.0)

@@ -7,8 +7,9 @@ under a name that carries a hash of the sources and flags, so an edited
 source rebuilds. Nothing here runs at import time: importing needs neither
 nvcc nor a GPU.
 
-Every kernel wrapper (ops/expand.py, ops/rasterize_tiled.py) adds one to its
-entry of `LAUNCHES` where it launches its kernel, and nowhere else.
+Every kernel wrapper (ops/expand.py, ops/rasterize_tiled.py, ops/compact.py)
+adds one to its entry of `LAUNCHES` where it launches its kernel, and
+nowhere else.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ import torch
 from .. import BUILD_DIR
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("pack.cu", "expand.cu", "rasterize_fwd.cu", "rasterize_bwd.cu")
+SOURCES = ("pack.cu", "expand.cu", "rasterize_fwd.cu", "rasterize_bwd.cu",
+           "rasterize_fwd_packed.cu", "compact.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -34,7 +36,8 @@ NVCC_FLAGS = (
 
 # launches per kernel wrapper since the last reset_launches()
 LAUNCHES = {"pack_rows": 0, "expand_with_keys": 0, "rasterize_fwd": 0,
-            "rasterize_bwd": 0}
+            "rasterize_bwd": 0, "expand_packed": 0,
+            "rasterize_fwd_packed": 0, "stream_compact": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +50,12 @@ _SIGNATURES = {
                           _VP, _VP, _VP, _VP, _VP],
     "log_rasterize_bwd": [_VP, _LL, _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP,
                           _VP, _VP, _VP],
+    "log_expand_packed_with_keys": [_VP, _LL, _I, _VP, _I, _I, _I, _VP, _VP,
+                                    _VP, _VP],
+    "log_rasterize_fwd_packed": [_VP, _LL, _VP, _VP, _I, _I, _I, _VP, _VP,
+                                 _VP, _VP],
+    "log_stream_compact": [_VP, _LL, _I, ctypes.POINTER(_VP), _I, _VP, _VP,
+                           _VP, _VP],
 }
 
 _lock = threading.Lock()

@@ -15,6 +15,12 @@ The production render path, in four stages:
   4. per-tile compositing, kernel K1 (`rasterize_forward`), with optional
      densification statistics.
 
+The inference frame of the flat_slice and block-pruned paths
+(`render_pairs_packed`) takes column splats (`SplatCols`): K4 packs the run
+rows and K3p expands them, one stable sort orders six payloads (px, py and
+bf16 pairs of conic, log-opacity and rgb) under a 32-bit key, K4 packs the
+8-row records and K5 composites them, without stats.
+
 Under autograd the chain runs backward through K1's VJP, the per-tile
 backward kernel K2 (`rasterize_backward`), and the plain-torch VJPs of K4
 (a row slice), the sort (a scatter by the permutation) and K3 (a segment
@@ -34,9 +40,11 @@ import ctypes
 
 import torch
 
+from . import expand as _expand
 from . import kernels
-from .expand import ExpandWithKeys
-from .projection import ALPHA_MAX, ALPHA_MIN, T_EPS, project_gaussians
+from .expand import PACKED_SPARE, ROW_NEXT, ROW_OFFS, ExpandWithKeys
+from .projection import (ALPHA_MAX, ALPHA_MIN, T_EPS, SplatCols,
+                         project_gaussians)
 
 TILE_H = 8
 TILE_W = 128
@@ -50,7 +58,53 @@ ROW_R, ROW_G, ROW_B, ROW_DEPTH = 6, 7, 8, 9
 ROW_GID = 10  # int32 bits: the caller's gaussian id
 N_ROWS = 16
 N_VAL_ROWS = 10
+# the inference pair record of K5: px, py f32; conic, log-opacity and rgb
+# as bf16 pairs in 32-bit words (hi | lo); rows 6-7 zero
+P_ROW_PX, P_ROW_PY = 0, 1
+P_ROW_CXX_CXY, P_ROW_CYY_OPAC, P_ROW_R_G, P_ROW_B = 2, 3, 4, 5
+P_N_ROWS = 8
+# pair budgets and slice buckets are multiples of this; the column path
+# packs its run rows (K4) and expands them with K3p only when P is one
+PACK_CHUNK = 1 << 15
 _STATS_LEVEL = {False: 0, "weights": 1, True: 2}
+
+
+# --------------------------------------------------------------------------
+# bf16 pairs in 32-bit words
+# --------------------------------------------------------------------------
+def _wrap_i32(x):
+    """int64 values in [0, 2^32) -> int32 tensors with the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _bf16_bits(x):
+    """Round-to-nearest-even f32 -> bf16 bit patterns (int64 in [0, 2^16)),
+    by integer arithmetic so that every device rounds alike; NaN becomes
+    the quiet NaN 0x7FC0 with its sign, as XLA converts it."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    rne = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16
+    nan = (bits & 0x7FFFFFFF) > 0x7F800000
+    return torch.where(nan, ((bits >> 16) & 0x8000) | 0x7FC0, rne) & 0xFFFF
+
+
+def pack2_bf16(hi, lo):
+    """Round two f32 rows to bf16 and pack them into one word row:
+    (int32 tensor holding hi << 16 | lo)."""
+    return _wrap_i32((_bf16_bits(hi) << 16) | _bf16_bits(lo))
+
+
+def unpack2_bf16(u):
+    """Inverse of pack2_bf16 on an int32 (or f32-typed) word row: two f32
+    rows. A bf16 placed in the top half of an f32 word is its exact value."""
+    u = u.contiguous().view(torch.int32).to(torch.int64)
+    hi = _wrap_i32(u & 0xFFFF0000).view(torch.float32)
+    lo = _wrap_i32((u & 0xFFFF) << 16).view(torch.float32)
+    return hi, lo
+
+
+def pack_shift(num_tiles: int) -> int:
+    """Bit shift that puts tile ids into the top bits of a 32-bit key."""
+    return 32 - max(int(num_tiles + 1).bit_length(), 1)
 
 
 def _stats_level(with_stats) -> int:
@@ -136,24 +190,44 @@ def _depth_order_bits(depth):
 
 def expand_sort_pairs(splats, colors, image_height: int, image_width: int,
                       max_pairs: int, runs_tail_only: bool = False,
-                      active_prefix=None, gid_ids=None):
-    """Binning up to the sort: rects -> pair expansion (K3) -> one sort by
-    (tile, depth, lane). Returns a dict with the SORTED pair rows (tile_s
-    int32 with `num_tiles` as the tail sentinel, gid_s int32, values_s
-    (10, A) f32, perm_s), the pre-sort `real` mask, the grid geometry, the
-    splats' radius/valid and `total`, the UNCLAMPED pair demand (int32,
-    capped at 2^30) that callers size the next frame's budget from.
+                      active_prefix=None, gid_ids=None,
+                      inference_pack: bool = False):
+    """Binning up to the sort: rects -> pair expansion (K3, or K3p) -> one
+    sort by (tile, depth, lane). Returns a dict with the SORTED pair rows
+    (tile_s int32 with `num_tiles` as the tail sentinel, gid_s int32,
+    values_s (10, A) f32, perm_s), the pre-sort `real` mask, the grid
+    geometry, the splats' radius/valid and `total`, the UNCLAMPED pair
+    demand (int32, capped at 2^30) that callers size the next frame's
+    budget from.
+
+    splats: `Splats` with colors (P, 3), or `SplatCols` with colors a tuple
+    of three (P,) columns. Column input under runs_tail_only with A % 512
+    == 0 and P % PACK_CHUNK == 0 packs the 15 run rows with K4 and expands
+    them with K3p, as the JAX package's dispatch does; otherwise K3.
 
     runs_tail_only: the caller promises `active_prefix` is a prefix mask
     (compacted slices). Every prefix lane then emits >= 1 pair (invalid
     lanes a sanitized zero-alpha record on the sentinel tile row), so
     zero-count runs exist only in the tail, as in the JAX package.
+
+    inference_pack: sort only what the packed compositing kernel K5 reads,
+    under one 32-bit key (tile << shift | the top depth bits; ties by
+    lane): returns tile_s, the six rows `packed6` (px, py f32; then conic,
+    log-opacity and rgb as bf16 pairs in int32 words), the grid geometry
+    and `total`. No gradient path.
     """
-    px_x = splats.pix_xy[:, 0]
-    px_y = splats.pix_xy[:, 1]
-    cn_xx = splats.conic[:, 0]
-    cn_xy = splats.conic[:, 1]
-    cn_yy = splats.conic[:, 2]
+    cols_mode = isinstance(splats, SplatCols)
+    if cols_mode:
+        px_x, px_y = splats.px, splats.py
+        cn_xx, cn_xy, cn_yy = splats.cxx, splats.cxy, splats.cyy
+        col_r, col_g, col_b = colors
+    else:
+        px_x = splats.pix_xy[:, 0]
+        px_y = splats.pix_xy[:, 1]
+        cn_xx = splats.conic[:, 0]
+        cn_xy = splats.conic[:, 1]
+        cn_yy = splats.conic[:, 2]
+        col_r, col_g, col_b = colors[:, 0], colors[:, 1], colors[:, 2]
     P = splats.opacity.shape[0]
     dev = splats.opacity.device
     tiles_x = -(-image_width // TILE_W)
@@ -192,24 +266,72 @@ def expand_sort_pairs(splats, colors, image_height: int, image_width: int,
     total_c = torch.clamp(demand, 0, A).to(torch.int32)
     total_unclamped = torch.clamp(demand, max=1 << 30).to(torch.int32)
 
-    geo = x0 + 32 * (y0 + 512 * torch.clamp(rect_w, min=1))
+    geo = (x0 + 32 * (y0 + 512 * torch.clamp(rect_w, min=1))).to(torch.int32)
     id_row = (torch.arange(P, dtype=torch.int32, device=dev)
               if gid_ids is None else gid_ids.to(torch.int32))
-    vals = torch.stack([
-        px_x, px_y, cn_xx, cn_xy, cn_yy, splats.opacity,
-        colors[:, 0], colors[:, 1], colors[:, 2], splats.depth,
-    ]).to(torch.float32).contiguous()
-    ints = torch.stack([offsets, geo.to(torch.int32), id_row]).contiguous()
-    vals_pc, ints_pc, tile_key, depth_key = ExpandWithKeys.apply(
-        vals, ints, total_c, A, tiles_x, num_tiles
-    )
+    val_rows = [px_x, px_y, cn_xx, cn_xy, cn_yy, splats.opacity,
+                col_r, col_g, col_b, splats.depth]
+    if (cols_mode and runs_tail_only and A % 512 == 0 and A < 1 << 24
+            and P % PACK_CHUNK == 0):
+        # K4 packs the 15 run rows (ints as exact f32, ids < 2^24 on a
+        # slice), the window sentinel goes into rows 13/14 past P, and K3p
+        # expands them
+        if P >= 1 << 24:
+            raise ValueError(f"slice too large for f32 id rows: {P}")
+        offs_f = offsets.to(torch.float32)
+        next_f = torch.cat([offs_f[1:], offs_f.new_full((1,), float(A))])
+        rows15 = [r.to(torch.float32).contiguous() for r in val_rows] + [
+            offs_f, geo.to(torch.float32), id_row.to(torch.float32),
+            offs_f, next_f.contiguous(),
+        ]
+        packed15 = pack_rows(rows15, N_ROWS, PACKED_SPARE)
+        packed15[ROW_OFFS:ROW_NEXT + 1, P:] = float(A)
+        rows13, tile_key, depth_key = _expand.expand_packed_with_keys(
+            packed15, P, total_c, A, tiles_x, num_tiles)
+        vals_pc = rows13[:N_VAL_ROWS]
+        gid_pc = rows13[12].to(torch.int32)
+    else:
+        vals = torch.stack(val_rows).to(torch.float32).contiguous()
+        ints = torch.stack([offsets, geo, id_row]).contiguous()
+        vals_pc, ints_pc, tile_key, depth_key = ExpandWithKeys.apply(
+            vals, ints, total_c, A, tiles_x, num_tiles
+        )
+        gid_pc = ints_pc[2]
     real = tile_key < num_tiles
+
+    if inference_pack:
+        # the JAX package's 32-bit key on the raw depth bits (positive for
+        # every composited pair); a stable sort breaks ties by lane
+        shift = pack_shift(num_tiles)
+        dbits = depth_key.contiguous().view(torch.int32).to(torch.int64)
+        key = (tile_key.to(torch.int64) << shift) | (
+            (dbits & 0xFFFFFFFF) >> (32 - shift))
+        key_s, perm = torch.sort(key, stable=True)
+        words = torch.stack([
+            vals_pc[ROW_PX].contiguous().view(torch.int32),
+            vals_pc[ROW_PY].contiguous().view(torch.int32),
+            pack2_bf16(vals_pc[ROW_CXX], vals_pc[ROW_CXY]),
+            pack2_bf16(vals_pc[ROW_CYY],
+                       torch.log(torch.clamp(vals_pc[ROW_OPAC], min=1e-38))),
+            pack2_bf16(vals_pc[ROW_R], vals_pc[ROW_G]),
+            pack2_bf16(vals_pc[ROW_B], torch.zeros_like(vals_pc[ROW_B])),
+        ])[:, perm]
+        return {
+            "tile_s": (key_s >> shift).to(torch.int32),
+            "packed6": (words[0].view(torch.float32),
+                        words[1].view(torch.float32),
+                        words[2], words[3], words[4], words[5]),
+            "tiles_x": tiles_x,
+            "tiles_y": tiles_y,
+            "num_tiles": num_tiles,
+            "total": total_unclamped,
+        }
 
     key = (tile_key.to(torch.int64) << 32) | _depth_order_bits(depth_key)
     _, perm = torch.sort(key, stable=True)
     return {
         "tile_s": tile_key[perm],
-        "gid_s": ints_pc[2][perm],
+        "gid_s": gid_pc[perm],
         "values_s": SortPermute.apply(vals_pc, perm),
         "perm_s": perm,
         "real": real,
@@ -271,16 +393,32 @@ def _tiles_to_image(x, tiles_x: int, tiles_y: int):
                                             tiles_x * TILE_W)
 
 
+def _decode_packed(d):
+    """K5's pair record rows (8, ...) -> the K1 rows px py cxx cxy cyy,
+    log-opacity, r g b."""
+    cxx, cxy = unpack2_bf16(d[P_ROW_CXX_CXY])
+    cyy, logop = unpack2_bf16(d[P_ROW_CYY_OPAC])
+    r, g = unpack2_bf16(d[P_ROW_R_G])
+    b, _ = unpack2_bf16(d[P_ROW_B])
+    return torch.stack([d[P_ROW_PX], d[P_ROW_PY], cxx, cxy, cyy, logop,
+                        r, g, b])
+
+
 def rasterize_forward_plain(pair_data, tile_start, tile_count, background,
                             tiles_x: int, tiles_y: int, with_stats,
-                            tile_group: int = 256):
-    """Plain torch version of `rasterize_forward` (same contract).
+                            tile_group: int = 256, packed: bool = False):
+    """Plain torch version of `rasterize_forward` (same contract), and with
+    packed=True of `rasterize_forward_packed`'s compositing (8-row records;
+    row 5 of the decoded record is log-opacity, alpha = exp(power +
+    log op)).
 
     Vectorized over groups of tiles and walks their runs chunk by chunk,
     with the transmittance inside a chunk as a cumprod (rasterize_ref's
     formulation); tiles leave the walk when saturated, like the kernel.
     """
     stats = _stats_level(with_stats)
+    if packed and stats:
+        raise ValueError("the packed records carry no stats")
     dev = pair_data.device
     num_tiles = tiles_x * tiles_y
     pstride = pair_data.shape[1]
@@ -295,7 +433,7 @@ def rasterize_forward_plain(pair_data, tile_start, tile_count, background,
     off0 = torch.div(start, PAIR_CHUNK, rounding_mode="floor") * PAIR_CHUNK
     n_chunks = torch.div(end - off0 + PAIR_CHUNK - 1, PAIR_CHUNK,
                          rounding_mode="floor")
-    gid_row = pair_data[ROW_GID].view(torch.int32)
+    gid_row = pair_data[ROW_GID].view(torch.int32) if stats == 2 else None
     k_iota = torch.arange(PAIR_CHUNK, device=dev)
 
     color = torch.zeros((num_tiles, 3, TILE_PIX), dtype=torch.float32,
@@ -317,6 +455,8 @@ def rasterize_forward_plain(pair_data, tile_start, tile_count, background,
             cols = off0[sub, None] + c * PAIR_CHUNK + k_iota  # (n, CHUNK)
             in_range = (cols >= start[sub, None]) & (cols < end[sub, None])
             d = pair_data[:, torch.clamp(cols, max=pstride - 1)]
+            if packed:
+                d = _decode_packed(d)
             dx = d[ROW_PX][:, :, None] - (org_x[sub, None] + lane_x)[:, None]
             dy = d[ROW_PY][:, :, None] - (org_y[sub, None] + lane_y)[:, None]
             power = (
@@ -324,8 +464,12 @@ def rasterize_forward_plain(pair_data, tile_start, tile_count, background,
                         + d[ROW_CYY][:, :, None] * dy * dy)
                 - d[ROW_CXY][:, :, None] * dx * dy
             )  # (n, CHUNK, TILE_PIX)
-            alpha = torch.clamp(d[ROW_OPAC][:, :, None] * torch.exp(power),
-                                max=ALPHA_MAX)
+            if packed:
+                alpha = torch.clamp(torch.exp(power + d[ROW_OPAC][:, :, None]),
+                                    max=ALPHA_MAX)
+            else:
+                alpha = torch.clamp(d[ROW_OPAC][:, :, None] * torch.exp(power),
+                                    max=ALPHA_MAX)
             alpha = torch.where(
                 (power <= 0.0) & (alpha >= ALPHA_MIN) & in_range[:, :, None],
                 alpha, 0.0,
@@ -416,6 +560,93 @@ def rasterize_forward(pair_data, tile_start, tile_count, background,
     kernels.check(rc, "rasterize_forward")
     kernels.LAUNCHES["rasterize_fwd"] += 1
     return color, tfinal, pid, pwp, pair_w, cend
+
+
+# --------------------------------------------------------------------------
+# K5: per-tile compositing of the packed inference records
+# --------------------------------------------------------------------------
+def rasterize_forward_packed_plain(pair_data, tile_start, tile_count,
+                                   background, tiles_x: int, tiles_y: int):
+    """Plain torch version of `rasterize_forward_packed` (same contract)."""
+    out = rasterize_forward_plain(pair_data, tile_start, tile_count,
+                                  background, tiles_x, tiles_y, False,
+                                  packed=True)
+    return out[0], out[1]
+
+
+def rasterize_forward_packed(pair_data, tile_start, tile_count, background,
+                             tiles_x: int, tiles_y: int):
+    """Composite every 8 x 128 tile's sorted run of packed pair records.
+
+    pair_data: (8, A + 128) f32-typed words (rows per P_ROW_*); tile_start /
+    tile_count: (num_tiles,) int32; background: (3,) f32. Returns (color
+    (3, Hp, Wp), tfinal (Hp, Wp)).
+    """
+    if pair_data.device.type == "cpu":
+        return rasterize_forward_packed_plain(pair_data, tile_start,
+                                              tile_count, background,
+                                              tiles_x, tiles_y)
+    background = background.to(torch.float32).contiguous()
+    kernels.require_cuda("rasterize_forward_packed", pair_data, tile_start,
+                         tile_count, background)
+    num_tiles = tiles_x * tiles_y
+    if (pair_data.dtype != torch.float32 or pair_data.dim() != 2
+            or pair_data.shape[0] != P_N_ROWS
+            or tile_start.dtype != torch.int32
+            or tile_count.dtype != torch.int32
+            or tile_start.shape[0] != num_tiles
+            or tile_count.shape[0] != num_tiles or background.numel() != 3):
+        raise ValueError(
+            f"rasterize_forward_packed: bad inputs pair_data "
+            f"{pair_data.dtype} {tuple(pair_data.shape)}, tiles "
+            f"{tile_start.dtype} {tuple(tile_start.shape)} / "
+            f"{tile_count.dtype}, num_tiles {num_tiles}"
+        )
+    dev = pair_data.device
+    Hp, Wp = tiles_y * TILE_H, tiles_x * TILE_W
+    color = torch.empty((3, Hp, Wp), dtype=torch.float32, device=dev)
+    tfinal = torch.empty((Hp, Wp), dtype=torch.float32, device=dev)
+    lib = kernels.library()
+    rc = lib.log_rasterize_fwd_packed(
+        kernels.ptr(pair_data), pair_data.shape[1], kernels.ptr(tile_start),
+        kernels.ptr(tile_count), num_tiles, tiles_x, tiles_y,
+        kernels.ptr(background), kernels.ptr(color), kernels.ptr(tfinal),
+        kernels.stream(),
+    )
+    kernels.check(rc, "rasterize_forward_packed")
+    kernels.LAUNCHES["rasterize_fwd_packed"] += 1
+    return color, tfinal
+
+
+def render_pairs_packed(splats, colors, background, image_height: int,
+                        image_width: int, max_pairs: int, active_prefix):
+    """Inference render on the packed pair pipeline: expansion -> one sort
+    of six payloads -> the (8, A + 128) pack (K4) -> K5. splats: SplatCols
+    (or Splats) of a compacted slice whose `active_prefix` is a prefix
+    mask. Returns (color (3, Hp, Wp), tfinal (Hp, Wp), total), total the
+    unclamped pair demand."""
+    es = expand_sort_pairs(
+        splats, colors, image_height, image_width, max_pairs,
+        runs_tail_only=True, active_prefix=active_prefix, inference_pack=True,
+    )
+    tile_s = es["tile_s"]
+    num_tiles = es["num_tiles"]
+    A = tile_s.shape[0]
+    bounds = torch.arange(num_tiles + 1, dtype=torch.int32,
+                          device=tile_s.device)
+    starts = torch.searchsorted(tile_s, bounds, side="left").to(torch.int32)
+    if A % PACK_CHUNK == 0:
+        pair_data = pack_rows(list(es["packed6"]), P_N_ROWS, PAIR_CHUNK)
+    else:  # small or odd buckets: plain stack + pad
+        pair_data = torch.zeros((P_N_ROWS, A + PAIR_CHUNK),
+                                dtype=torch.float32, device=tile_s.device)
+        for r, row in enumerate(es["packed6"]):
+            pair_data[r, :A] = row.view(torch.float32)
+    color, tfinal = rasterize_forward_packed(
+        pair_data, starts[:-1], starts[1:] - starts[:-1], background,
+        es["tiles_x"], es["tiles_y"],
+    )
+    return color, tfinal, es["total"]
 
 
 # --------------------------------------------------------------------------

@@ -5,7 +5,7 @@ CPU-only host). Run them on the GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 
-K4 and K3 are copies and must be bit-exact; K1 composites sequentially per
+K4, K3, K3p and K6 are copies and must be bit-exact; K1 (and K5) composites sequentially per
 pixel where the plain version takes a cumprod per chunk: products round
 differently, so a pair may cross the alpha >= 1/255 or T >= 1e-4 gate in
 one and not the other (<= ~4e-3 on a pixel); colors and transmittance agree
@@ -186,3 +186,110 @@ def test_wrappers_reject_cpu_mixing(cuda):
     args[5] = args[5].cpu()  # dcolor on the host
     with pytest.raises(ValueError):
         rt.rasterize_backward(*args)
+
+
+# ------------------------------------------------------------ K3p, K5, K6
+def _packed_input(cuda, P, n_valid, A, seed=0, tiles_x=4, tiles_y=16):
+    """A (16, P + 768) K3p input as the column render path builds it."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randint(1, tiles_x + 1, (P,), device=cuda, generator=g)
+    h = torch.randint(1, 4, (P,), device=cuda, generator=g)
+    x0 = torch.randint(0, 1 << 20, (P,), device=cuda, generator=g) % (
+        tiles_x - w + 1)
+    y0 = torch.randint(0, 1 << 20, (P,), device=cuda, generator=g) % (
+        tiles_y - h + 1)
+    counts = torch.where(torch.arange(P, device=cuda) < n_valid, w * h, 0)
+    csum = torch.cumsum(counts, 0)
+    offs = torch.clamp(csum - counts, max=A).to(torch.float32)
+    total = torch.clamp(csum[-1], max=A).to(torch.int32)
+    geo = (x0 + 32 * (y0 + 512 * w)).to(torch.float32)
+    rows = [torch.randn(P, device=cuda, generator=g) for _ in range(10)]
+    rows += [offs, geo, torch.randperm(P, device=cuda, generator=g).float(),
+             offs, torch.cat([offs[1:], offs.new_full((1,), float(A))])]
+    packed = rt.pack_rows([r.contiguous() for r in rows], 16,
+                          expand_mod.PACKED_SPARE)
+    packed[expand_mod.ROW_OFFS:expand_mod.ROW_NEXT + 1, P:] = float(A)
+    return packed, total, tiles_x, tiles_x * tiles_y
+
+
+@pytest.mark.parametrize("n_valid", [20000, 1, 0])
+def test_expand_packed_kernel_exact(cuda, n_valid):
+    """K3p against its plain version, bit-exact everywhere (both copy the
+    last run past `total`). n_valid = 0: an empty-tail window, every run
+    zero-length and total = 0."""
+    P, A = rt.PACK_CHUNK, 1 << 16
+    packed, total, tiles_x, num_tiles = _packed_input(cuda, P, n_valid, A)
+    before = kernels.LAUNCHES["expand_packed"]
+    got = expand_mod.expand_packed_with_keys(packed, P, total, A, tiles_x,
+                                             num_tiles)
+    assert kernels.LAUNCHES["expand_packed"] == before + 1
+    want = expand_mod.expand_packed_with_keys_plain(packed, P, total, A,
+                                                    tiles_x, num_tiles)
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    assert int((got[1] < num_tiles).sum()) == int(total)
+
+
+def test_rasterize_forward_packed_kernel(cuda):
+    """K5 against its plain version on the column path's packed records;
+    K1's tolerances (sequential compositing vs a cumprod per chunk)."""
+    from log_tpu_torch.ops.projection import SplatCols
+
+    splats, col, A = _pairs(cuda)
+    cols = SplatCols(px=splats.pix_xy[:, 0].contiguous(),
+                     py=splats.pix_xy[:, 1].contiguous(),
+                     cxx=splats.conic[:, 0].contiguous(),
+                     cxy=splats.conic[:, 1].contiguous(),
+                     cyy=splats.conic[:, 2].contiguous(),
+                     opacity=splats.opacity, depth=splats.depth,
+                     radius=splats.radius, valid=splats.valid)
+    es = rt.expand_sort_pairs(cols, tuple(col.T.contiguous()), H, W, A,
+                              runs_tail_only=True, inference_pack=True)
+    starts = torch.searchsorted(
+        es["tile_s"], torch.arange(es["num_tiles"] + 1, dtype=torch.int32,
+                                   device=cuda)).to(torch.int32)
+    pd = rt.pack_rows(list(es["packed6"]), rt.P_N_ROWS, rt.PAIR_CHUNK)
+    args = (pd, starts[:-1], starts[1:] - starts[:-1],
+            torch.tensor([0.1, 0.2, 0.3], device=cuda), es["tiles_x"],
+            es["tiles_y"])
+    before = kernels.LAUNCHES["rasterize_fwd_packed"]
+    got = rt.rasterize_forward_packed(*args)
+    assert kernels.LAUNCHES["rasterize_fwd_packed"] == before + 1
+    want = rt.rasterize_forward_packed_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() < 5e-3
+        assert (a - b).abs().mean() < 1e-5
+    assert float(got[1].min()) < 0.5
+
+
+@pytest.mark.parametrize("density,k_frac", [(0.13, 0.25), (0.8, 0.5),
+                                            (0.02, 0.05), (1.0, 1.0),
+                                            (0.0, 0.5)])
+def test_stream_compact_kernel_exact(cuda, density, k_frac):
+    """K6 against its plain version: bit-exact, with NaN payloads, int32
+    values past 2^24, a capacity that is not a block multiple, more kept
+    rows than k and fewer."""
+    from log_tpu_torch.ops.compact import (stream_compact_cols,
+                                           stream_compact_cols_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(int(density * 100))
+    cap = 3 * 8192 * 17 + 77
+    k = max(128, int(cap * k_frac) // 128 * 128)
+    keep = torch.rand(cap, device=cuda, generator=g) < density
+    px = torch.randn(cap, device=cuda, generator=g) * 500
+    px[::7] = float("nan")
+    cols = {
+        "px": px,
+        "p1": torch.randint(-(1 << 31), 1 << 31, (cap,), device=cuda,
+                            generator=g, dtype=torch.int64).to(torch.int32),
+        "big": torch.arange(cap, device=cuda, dtype=torch.int32) + (1 << 24),
+    }
+    before = kernels.LAUNCHES["stream_compact"]
+    got = stream_compact_cols(cols, keep, k)
+    assert kernels.LAUNCHES["stream_compact"] == before + 1
+    want = stream_compact_cols_plain(cols, keep, k)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    for n in cols:
+        assert torch.equal(_bits(got[0][n]), _bits(want[0][n])), n
+    assert int(got[2].sum()) == min(k, int(keep.sum()))
