@@ -14,7 +14,11 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    (the generic flat-cut frame) while the inputs of every kernel call are
    recorded; each CUDA kernel is then replayed on those main-path inputs
    against its plain torch version (K4 and K3 bit-exact, K1 within the
-   tolerances below), both timed;
+   tolerances below, in each with_stats mode), both timed, beside its
+   bound: bytes over the memory rate or FP32 operations over the peak,
+   from this run's inputs (for K1, K2 and K5 the pairs of the composited
+   chunks and the (pair, pixel) combinations whose alpha gate passes,
+   counted on the card in plain torch);
 4. serving slice: launch counters reset, 12 orbit frames through
    NaiveRendererAndLoss.vis -> LoG.render_fused (2 warm-up), timed with
    torch.cuda.synchronize(); every kernel of the path must have launched;
@@ -46,7 +50,9 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    Trainer.training_step -> LoG.training_iteration cycling the 4 views with
    a random background (steps 21-24 run the per-view gain), each timed with
    torch.cuda.synchronize(); K2 must launch once per step, K1 at least twice;
-8. training checks: K2 against its plain version on step 0's own inputs;
+8. training checks: K2 against its plain version on step 0's own inputs
+   (and two launches bit-identical), K1 on step 0's "weights" and True
+   calls;
    step 0 replayed from its saved inputs with every kernel swapped for its
    plain version (same loss, same per-gaussian gradients, read from the
    first Adam moments); every parameter and moment finite after each step;
@@ -57,8 +63,10 @@ and 4 more training steps run under torch.profiler, each after its timed
 run; the device time by kernel goes to build/{generic,flat_slice,block,
 train}_profile.txt.
 
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is the kernel table as JSON (per kernel: launches
+by phase and per call, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+library_ms, null where no single PyTorch call computes the function, with
+library_note); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -137,6 +145,29 @@ KERNEL_SOURCES = {
                              "log_tpu/ops/rasterize_tiled.py:1094"),
     "stream_compact": ("log_tpu_torch/csrc/compact.cu",
                        "log_tpu/ops/compact_pallas.py:48"),
+}
+# the bound of a kernel (bound_ms): the larger of its bytes (each input
+# read once, each output written once) over the memory rate and its
+# operations over the FP32 peak; NVIDIA's data sheet for the H100 SXM at
+# 700 W (the card's own limit is printed beside)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_OPS = 67e12
+# FP32 operations per (pair, pixel) whose alpha gate passes, expf counted
+# as one: K1 and K5 (power 8, alpha 2, transmittance 3, color 6), K2 (the
+# recurrence and the nine gradient terms)
+COMPOSITE_OPS = 20
+BACKWARD_OPS = 40
+# no single PyTorch call computes these functions (library_ms is null)
+NO_LIBRARY_CALL = {
+    "pack_rows": "none: zero rows and the spare columns are part of the "
+                 "output (a stack and a pad)",
+    "expand_with_keys": "none: it decodes (tile, depth) keys per pair",
+    "expand_packed": "none: it decodes (tile, depth) keys per pair",
+    "rasterize_fwd": "none: sequential compositing with a per-tile "
+                     "saturation exit",
+    "rasterize_bwd": "none: the compositing recurrence run back to front",
+    "rasterize_fwd_packed": "none: sequential compositing of bf16 records",
+    "stream_compact": "none: its output is zero-filled to k",
 }
 SERVING_KERNELS = ("pack_rows", "expand_with_keys", "rasterize_fwd")
 # the flat_slice frame: the root cull render (K3, K4, K1) and the packed
@@ -286,6 +317,129 @@ def _bits(t):
     return t.contiguous().view(-1).view(torch.int32)
 
 
+def tensor_bytes(x):
+    """Bytes of every tensor in x (a tensor, or lists, tuples and dicts of
+    them)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        return sum(tensor_bytes(v) for v in x)
+    return 0
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the FP32 operations over the FP32 peak."""
+    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    o_ms = ops / PEAK_FP32_OPS * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def composite_counts(pair_data, tile_start, tile_count, n_walk, tiles_x,
+                     packed=False, batch=256):
+    """(pairs, dense, gated) of a compositing call (K1, K2, K5), in plain
+    torch on the card; a measurement helper, not on the path. pairs: the
+    run pairs inside the chunks walked (n_walk per tile: cend); dense:
+    pairs x 1024 pixels; gated: the (pair, pixel) combinations whose alpha
+    gate passes, in the plain versions' op order."""
+    import torch
+
+    from log_tpu_torch.ops import rasterize_tiled as rt
+
+    dev = pair_data.device
+    chunk, tw, th = rt.PAIR_CHUNK, rt.TILE_W, rt.TILE_H
+    start = tile_start.long()
+    end = start + tile_count.long()
+    off0 = start // chunk * chunk
+    n_walk = n_walk.long()
+    # one item per (tile, chunk walked)
+    tile = torch.repeat_interleave(torch.arange(n_walk.numel(), device=dev),
+                                   n_walk)
+    first = torch.cumsum(n_walk, 0) - n_walk
+    step = torch.arange(tile.numel(), device=dev) - first[tile]
+    lane = torch.arange(rt.TILE_PIX, device=dev)
+    lx = (lane % tw).float()
+    ly = (lane // tw).float()
+    k = torch.arange(chunk, device=dev)
+    pairs = gated = 0
+    for i in range(0, tile.numel(), batch):
+        t, c = tile[i:i + batch], step[i:i + batch]
+        cols = off0[t, None] + c[:, None] * chunk + k
+        ok = (cols >= start[t, None]) & (cols < end[t, None])
+        d = pair_data[:, torch.clamp(cols, max=pair_data.shape[1] - 1)]
+        if packed:
+            d = rt._decode_packed(d)
+        ox = ((t % tiles_x) * tw).float()
+        oy = ((t // tiles_x) * th).float()
+        dx = d[0][:, :, None] - (ox[:, None] + lx)[:, None]
+        dy = d[1][:, :, None] - (oy[:, None] + ly)[:, None]
+        power = (-0.5 * (d[2][:, :, None] * dx * dx + d[4][:, :, None] * dy * dy)
+                 - d[3][:, :, None] * dx * dy)
+        if packed:
+            alpha = torch.exp(power + d[5][:, :, None])
+        else:
+            alpha = d[5][:, :, None] * torch.exp(power)
+        alpha = torch.clamp(alpha, max=rt.ALPHA_MAX)
+        gate = (power <= 0.0) & (alpha >= rt.ALPHA_MIN) & ok[:, :, None]
+        pairs += int(ok.sum())
+        gated += int(gate.sum())
+    return pairs, pairs * rt.TILE_PIX, gated
+
+
+def k1_calls_by_mode(calls):
+    """The recorded K1 calls' first six arguments by with_stats mode."""
+    return {args[6]: args[:6] for args, _ in calls["rasterize_fwd"]}
+
+
+def check_k1(call, mode, a, log, failures):
+    """K1 on one recorded call's inputs in one with_stats mode against its
+    plain version (the K1_* tolerances), both timed, with the call's
+    composited (pair, pixel) counts and its bound."""
+    import torch
+
+    from log_tpu_torch.ops import rasterize_tiled as rt
+
+    with torch.no_grad():  # the training step's pair array requires grad
+        k = rt.rasterize_forward(*a, mode)
+        p = rt.rasterize_forward_plain(*a, mode)
+        d_col = (k[0] - p[0]).abs()
+        d_t = (k[1] - p[1]).abs()
+        err = max(float(d_col.max()), float(d_t.max()))
+        mean = max(float(d_col.mean()), float(d_t.mean()))
+        pid_mis = float((k[2] != p[2]).float().mean())
+        pw_mis = float(((k[4] - p[4]).abs() > 1e-5).float().mean())
+        cend_eq = torch.equal(k[5], p[5])
+        ms = device_ms(lambda: rt.rasterize_forward(*a, mode), 10)
+        pms = device_ms(lambda: rt.rasterize_forward_plain(*a, mode), 2)
+        pairs, dense, gated = composite_counts(a[0], a[1], a[2], k[5], a[4])
+    stats = rt._stats_level(mode)
+    tiles = a[1].numel()
+    # records (+ the id row with full stats), tile runs, bg, 24 bytes of
+    # outputs per pixel, per-pair weights, cend
+    nbytes = (pairs * (10 if stats == 2 else 9) * 4 + tiles * 12 + 12
+              + k[1].numel() * 24 + (pairs * 4 if stats else 0))
+    b_ms, by = bound(nbytes, gated * COMPOSITE_OPS)
+    log(f"K1 rasterize_fwd  {call}, with_stats={mode!r}: "
+        f"color/tfinal max_abs={err:.3g} mean_abs={mean:.3g} "
+        f"pid mismatch={pid_mis:.3g} pair_w mismatch={pw_mis:.3g} "
+        f"pwp max_abs={float((k[3] - p[3]).abs().max()):.3g} "
+        f"cend equal={cend_eq}; pairs {pairs}, (pair, pixel) dense {dense} "
+        f"gated {gated} ({100 * gated / max(dense, 1):.2f}%); kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    if err > K1_MAX_ABS or mean > K1_MEAN_ABS or pid_mis > K1_MISMATCH \
+            or pw_mis > K1_MISMATCH:
+        failures.append(f"K1 {call} with_stats={mode!r} disagrees with "
+                        f"plain")
+    return {"call": call, "with_stats": mode, "max_abs_err": err,
+            "mean_abs_err": mean, "ms": ms, "plain_ms": pms,
+            "bound_ms": b_ms, "bound_by": by, "pairs": pairs,
+            "dense_pair_pixels": dense, "gated_pair_pixels": gated}
+
+
 def compare_kernels(calls, log):
     """Replay the recorded main-path calls through each kernel and its plain
     version. Returns the kernel rows of the final JSON (launches filled in
@@ -306,11 +460,14 @@ def compare_kernels(calls, log):
     exact = torch.equal(_bits(k), _bits(p))
     ms = device_ms(lambda: rt.pack_rows(*args, **kw), 10)
     pms = device_ms(lambda: rt.pack_rows_plain(*args, **kw), 10)
+    b_ms, by = bound(tensor_bytes(args) + tensor_bytes(k), 0)
     log(f"K4 pack_rows      shape {tuple(k.shape)}: exact={exact} "
-        f"max_abs={err:.3g} kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        f"max_abs={err:.3g} kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({by})")
     if not exact:
         failures.append("K4 pack_rows is not bit-exact")
-    rows["pack_rows"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+    rows["pack_rows"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+                         "bound_ms": b_ms, "bound_by": by}
 
     # K3: bit-exact, including the tail past `total`
     args, kw = calls["expand_with_keys"][-1]
@@ -321,46 +478,29 @@ def compare_kernels(calls, log):
     ms = device_ms(lambda: expand_with_keys(*args, **kw), 10)
     pms = device_ms(lambda: expand_with_keys_plain(*args, **kw), 10)
     total = int(args[2].reshape(()))
+    b_ms, by = bound(tensor_bytes(args) + tensor_bytes(k), 0)
     log(f"K3 expand         A={args[3]} P={args[0].shape[1]} total={total}: "
         f"exact={exact} max_abs={err:.3g} kernel {ms:.4f} ms, "
-        f"plain {pms:.4f} ms")
+        f"plain {pms:.4f} ms, bound {b_ms:.4f} ms ({by})")
     if not exact:
         failures.append("K3 expand_with_keys is not bit-exact")
-    rows["expand_with_keys"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+    rows["expand_with_keys"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+                                "bound_ms": b_ms, "bound_by": by}
 
     # K1: the cull render's call ("weights") and the frame's call (False),
     # plus full stats on the frame's pairs
-    by_mode = {}
-    for args, kw in calls["rasterize_fwd"]:
-        by_mode[args[6]] = args[:6]
-    cases = [("weights", by_mode["weights"]), (False, by_mode[False]),
-             (True, by_mode[False])]
-    k1_err, k1_ms, k1_pms = 0.0, None, None
-    for mode, a in cases:
-        k = rt.rasterize_forward(*a, mode)
-        p = rt.rasterize_forward_plain(*a, mode)
-        d_col = (k[0] - p[0]).abs()
-        d_t = (k[1] - p[1]).abs()
-        err = max(float(d_col.max()), float(d_t.max()))
-        mean = max(float(d_col.mean()), float(d_t.mean()))
-        pid_mis = float((k[2] != p[2]).float().mean())
-        pw_mis = float(((k[4] - p[4]).abs() > 1e-5).float().mean())
-        log(f"K1 rasterize_fwd  with_stats={mode!r} pairs={a[0].shape[1]}: "
-            f"color/tfinal max_abs={err:.3g} mean_abs={mean:.3g} "
-            f"pid mismatch={pid_mis:.3g} pair_w mismatch={pw_mis:.3g} "
-            f"pwp max_abs={float((k[3] - p[3]).abs().max()):.3g} "
-            f"cend equal={torch.equal(k[5], p[5])}")
-        if err > K1_MAX_ABS or mean > K1_MEAN_ABS or pid_mis > K1_MISMATCH \
-                or pw_mis > K1_MISMATCH:
-            failures.append(f"K1 with_stats={mode!r} disagrees with plain")
-        k1_err = max(k1_err, err)
-        if mode is False:
-            k1_ms = device_ms(lambda: rt.rasterize_forward(*a, mode), 10)
-            k1_pms = device_ms(lambda: rt.rasterize_forward_plain(*a, mode), 2)
-            log(f"K1 rasterize_fwd  with_stats=False: kernel {k1_ms:.4f} ms, "
-                f"plain {k1_pms:.4f} ms")
-    rows["rasterize_fwd"] = {"max_abs_err": k1_err, "ms": k1_ms,
-                             "plain_ms": k1_pms}
+    by_mode = k1_calls_by_mode(calls)
+    modes = [check_k1("generic frame cull", "weights", by_mode["weights"],
+                      log, failures),
+             check_k1("generic frame", False, by_mode[False], log, failures),
+             check_k1("generic frame pairs", True, by_mode[False], log,
+                      failures)]
+    frame = modes[1]
+    rows["rasterize_fwd"] = {
+        "max_abs_err": max(m["max_abs_err"] for m in modes),
+        **{key: frame[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+        "modes": modes}
     return rows, failures
 
 
@@ -496,28 +636,40 @@ def compare_packed_kernels(calls, log):
               float((k[2].double() - p[2].double()).abs().max()))
     ms = device_ms(lambda: ex.expand_packed_with_keys(*args, **kw), 10)
     pms = device_ms(lambda: ex.expand_packed_with_keys_plain(*args, **kw), 10)
+    b_ms, by = bound(tensor_bytes(args) + tensor_bytes(k), 0)
     log(f"K3p expand_packed A={args[3]} P={args[1]} total={total}: "
         f"exact={exact} max_abs={err:.3g} kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms")
+        f"{pms:.4f} ms, bound {b_ms:.4f} ms ({by})")
     if not exact:
         failures.append("K3p expand_packed_with_keys is not bit-exact")
-    rows["expand_packed"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+    rows["expand_packed"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+                             "bound_ms": b_ms, "bound_by": by}
 
     # K5: K1's tolerances
     args, kw = calls["rasterize_fwd_packed"][-1]
     k = rt.rasterize_forward_packed(*args, **kw)
-    p = rt.rasterize_forward_packed_plain(*args, **kw)
+    # the plain version's full output also gives the chunks composited
+    full = rt.rasterize_forward_plain(*args, False, packed=True)
+    p = full[:2]
     err = max(float((a - b).abs().max()) for a, b in zip(k, p))
     mean = max(float((a - b).abs().mean()) for a, b in zip(k, p))
     ms = device_ms(lambda: rt.rasterize_forward_packed(*args, **kw), 10)
     pms = device_ms(lambda: rt.rasterize_forward_packed_plain(*args, **kw), 2)
+    pairs, dense, gated = composite_counts(args[0], args[1], args[2],
+                                           full[5], args[4], packed=True)
+    # six record words per pair, tile runs, bg, color and tfinal
+    b_ms, by = bound(pairs * 24 + args[1].numel() * 8 + 12
+                     + k[1].numel() * 16, gated * COMPOSITE_OPS)
     log(f"K5 rasterize_fwd_packed pairs={args[0].shape[1]}: color/tfinal "
-        f"max_abs={err:.3g} mean_abs={mean:.3g}; kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms")
+        f"max_abs={err:.3g} mean_abs={mean:.3g}; composited pairs {pairs}, "
+        f"(pair, pixel) dense {dense} gated {gated}; kernel {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, bound {b_ms:.4f} ms ({by})")
     if err > K1_MAX_ABS or mean > K1_MEAN_ABS:
         failures.append("K5 rasterize_forward_packed disagrees with plain")
-    rows["rasterize_fwd_packed"] = {"max_abs_err": err, "ms": ms,
-                                    "plain_ms": pms}
+    rows["rasterize_fwd_packed"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+        "bound_by": by, "pairs": pairs, "dense_pair_pixels": dense,
+        "gated_pair_pixels": gated}
     return rows, failures
 
 
@@ -539,11 +691,17 @@ def compare_k6(calls, log):
     ms = device_ms(lambda: compact.stream_compact_cols(*args, **kw), 10)
     pms = device_ms(lambda: compact.stream_compact_cols_plain(*args, **kw), 10)
     cols, keep, kk = args
+    # bytes the compaction needs: the mask, the words of the rows it keeps
+    # (the first kk kept) and its outputs; dropped rows need not be read
+    kept = int(keep.sum())
+    moved = min(kept, kk) * sum(c.element_size() for c in cols.values())
+    b_ms, by = bound(tensor_bytes(keep) + moved + tensor_bytes(k), 0)
     log(f"K6 stream_compact cap={keep.shape[0]} columns={len(cols)} k={kk} "
-        f"kept={int(keep.sum())}: exact={exact} max_abs={err:.3g}; kernel "
-        f"{ms:.4f} ms, plain {pms:.4f} ms")
+        f"kept={kept}: exact={exact} max_abs={err:.3g}; kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({by})")
     fails = [] if exact else ["K6 stream_compact_cols is not bit-exact"]
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}, fails
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+            "bound_by": by}, fails
 
 
 def render_slice_phases(model, renderer, batches, generic0, log):
@@ -801,17 +959,42 @@ def compare_k2(calls, log):
         scale = float(p[:9].abs().max())
         err = float((k[:9] - p[:9]).abs().max())
         tail_zero = float(k[9:].abs().max()) == 0.0
+        again = rt.rasterize_backward(*args, **kw)
+        same = torch.equal(_bits(k), _bits(again))
         ms = device_ms(lambda: rt.rasterize_backward(*args, **kw), 10)
         pms = device_ms(lambda: rt.rasterize_backward_plain(*args, **kw), 2)
+        # K2 walks K1's composited chunks (cend <= the chunks of the run)
+        pairs, dense, gated = composite_counts(args[0], args[1], args[2],
+                                               args[3], args[8])
     cend = args[3]
+    # records in, rows 0-8 out per pair; tile runs and cend; tfinal,
+    # dcolor and dalpha per pixel; bg
+    b_ms, by = bound(pairs * 72 + cend.numel() * 12 + args[4].numel() * 20
+                     + 12, gated * BACKWARD_OPS)
     log(f"K2 rasterize_bwd  pairs={args[0].shape[1]} tiles={cend.numel()} "
         f"chunks walked={int(cend.sum())}: max_abs={err:.3g} "
         f"(max |plain| {scale:.3g}, rel {err / max(scale, 1e-30):.3g}) "
-        f"rows 9-15 zero={tail_zero}; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        f"rows 9-15 zero={tail_zero}, two launches bit-identical={same}; "
+        f"pairs {pairs}, (pair, pixel) dense {dense} gated {gated} "
+        f"({100 * gated / max(dense, 1):.2f}%); kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {b_ms:.4f} ms ({by})")
     fails = []
-    if not (scale > 0 and err <= K2_REL_TOL * scale and tail_zero):
+    if not (scale > 0 and err <= K2_REL_TOL * scale and tail_zero and same):
         fails.append("K2 rasterize_bwd disagrees with plain")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}, fails
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+            "bound_by": by, "pairs": pairs, "dense_pair_pixels": dense,
+            "gated_pair_pixels": gated}, fails
+
+
+def compare_k1_step(calls, log):
+    """K1 on training step 0's own calls: the cull render ("weights") and
+    the render with full stats (True)."""
+    by_mode = k1_calls_by_mode(calls)
+    failures = []
+    modes = [check_k1("training step cull", "weights", by_mode["weights"],
+                      log, failures),
+             check_k1("training step", True, by_mode[True], log, failures)]
+    return modes, failures
 
 
 def replay_step0(step0, log):
@@ -1066,6 +1249,11 @@ def main() -> int:
         failures.append("counters not filled on the kept rows")
     rows["rasterize_bwd"], kfail = compare_k2(step0["calls"], log)
     failures += kfail
+    step_modes, kfail = compare_k1_step(step0["calls"], log)
+    failures += kfail
+    rows["rasterize_fwd"]["modes"] += step_modes
+    rows["rasterize_fwd"]["max_abs_err"] = max(
+        m["max_abs_err"] for m in rows["rasterize_fwd"]["modes"])
     replay, sfail = replay_step0(step0, log)
     failures += sfail
     del step0
@@ -1082,12 +1270,19 @@ def main() -> int:
     }))
     kernels_json = []
     runs = dict(serve_runs, train=t_launches)
+    # main-path calls per phase: frames, or training steps
+    n_calls = {phase: TRAIN_STEPS if phase == "train" else FRAMES
+               for phase in runs}
     for name, (src, replaces) in KERNEL_SOURCES.items():
         by_phase = {phase: run[name] for phase, run in runs.items()}
-        kernels_json.append({"name": name, "route": "cuda", "source": src,
-                             "replaces": replaces,
-                             "launches": sum(by_phase.values()),
-                             "launches_by_phase": by_phase, **rows[name]})
+        kernels_json.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "launches_per_call": {phase: n / n_calls[phase]
+                                  for phase, n in by_phase.items() if n},
+            "library_ms": None, "library_note": NO_LIBRARY_CALL[name],
+            **rows[name]})
     if failures:
         for f in failures:
             print("FAIL: " + f, file=sys.stderr)

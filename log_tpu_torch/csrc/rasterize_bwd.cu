@@ -8,13 +8,13 @@
 // per-pixel 1 - T composited alpha (the caller passes -dL/dtfinal).
 // Output: rows 0..8 of the per-pair gradient array,
 // d[px, py, cxx, cxy, cyy, opacity, r, g, b], for every pair of every tile;
-// the caller zero-fills the array (rows 9..15, dead pairs, pairs past cend).
+// the caller zero-fills the array (rows 9..15, dead pairs, pairs past cend,
+// pairs that no pixel's gate passes).
 //
 // One block of 1024 threads walks one 8 x 128 tile, one thread per pixel,
 // over the chunks K1 composited (min(n_chunks, cend[t]), the same
-// 128-pair chunk base), BACK to front. Each chunk's 9 value rows are staged
-// in shared memory. Every pixel runs the recurrence sequentially from its
-// last pair to its first:
+// 128-pair chunk base), BACK to front. Every pixel runs the recurrence
+// sequentially from its last pair to its first:
 //   T  <- tfinal, u <- tfinal * (bg . dC) - dalpha * tfinal;
 //   per pair with alpha kept (power <= 0, alpha >= 1/255):
 //     T_i = T / (1 - alpha)            (transmittance before the pair)
@@ -24,55 +24,96 @@
 //     u += [kept] w (rgb . dC);  T = T_i.
 // The same gates as K1 and as the TPU kernel's math.
 //
-// The nine components of a pair are sums over the tile's 1024 pixels. A
-// pair belongs to exactly one tile, so no global atomics are needed: a warp
-// shuffle sum per component (skipped when no lane of the warp touches the
-// pair), per-warp partials in shared memory [32 warps][9][128 pairs], then
-// a fixed-order sum over the 32 warps. The result is deterministic, so a
-// training run and the comparison with the plain version are reproducible.
-// The partials take 147,456 bytes: dynamic shared memory, one block per SM.
-//
-// Bound on the H100: FP32/SFU throughput and shuffles in the block (one expf
-// and ~40 flops per (pair, pixel), 45 shuffles per (pair, touching warp));
-// the pair records are read once per tile. Not carried over from the TPU:
-// the triangular MXU products in log space that computed the recurrence,
-// and the read-modify-write of 128-lane chunks shared with neighbouring
-// tiles (each block writes only its own pairs here).
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Bound on the H100: FP32 operations, one expf and ~40 flops per (pair,
+// pixel) whose gate passes (14.5% of the walked combinations on the main
+// path), plus the reduction of nine sums per pair over the tile's pixels;
+// the records are read once. Evaluating every pair at every pixel and
+// reducing it with nine 5-step shuffle sums per touching warp spends most
+// of its instructions on zeros and shuffles. What bounds this design is
+// the instruction count of its pair loop (the gradient terms and the
+// 16-shuffle reduction on every warp whose patch the box meets) and four
+// barriers per chunk.
+// Design:
+// - footprint culling (footprint.cuh, shared with K1): each warp owns an
+//   8 x 4 pixel patch and walks only the pairs whose conservative gate box
+//   meets it; a skipped pixel has alpha 0, so T and u pass unchanged and
+//   its gradient is 0;
+// - a transpose (reduce-scatter) warp reduction: the nine components,
+//   padded to 16, are halved over lanes 16, 8, 4, 2, 1 in 16 shuffles
+//   (not 45); lane 2c ends with the warp's sum of component c;
+// - only warps whose pixels pass a pair's gate write a partial, and set
+//   their bit in the pair's touch mask (an integer atomicOr); the block sum
+//   adds the partials of the set bits in ascending warp order. The order is
+//   fixed, so the result is deterministic (no float atomics);
+// - partials per 64-pair half chunk, [32 warps][9][64 + 1] floats: the
+//   dynamic shared memory is 90,240 bytes, so two blocks fit on an SM; at
+//   32 registers a thread (a few spills) they measured faster than one
+//   block at 64 registers;
+// - triple-buffered cp.async staging as in K1: chunk c - 2's records are
+//   copied and chunk c - 1's masks computed while chunk c is walked.
+// Not carried over from the TPU: the triangular MXU products in log space
+// that computed the recurrence, and the read-modify-write of 128-lane
+// chunks shared with neighbouring tiles (each block writes only its pairs).
+#include "footprint.cuh"
 
 namespace {
 
-constexpr int kTileH = 8;
-constexpr int kTileW = 128;
-constexpr int kTilePix = kTileH * kTileW;
-constexpr int kWarps = kTilePix / 32;
-constexpr int kChunk = 128;
-constexpr int kRows = 9;  // px py cxx cxy cyy opac r g b
-constexpr float kAlphaMin = (float)(1.0 / 255.0);
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = (float)1e-4;
-constexpr size_t kSmemBytes =
-    (size_t)(kRows * kChunk + kWarps * kRows * kChunk) * sizeof(float);
+using namespace footprint;
 
-__device__ __forceinline__ float warp_sum(float v) {
+constexpr int kRows = 9;  // px py cxx cxy cyy opac r g b
+constexpr int kHalf = kChunk / 2;
+constexpr int kPartStride = kHalf + 1;  // odd: the partial writes spread
+constexpr int kRecFloats = 3 * kRows * kChunk;
+constexpr int kPartFloats = kWarps * kRows * kPartStride;
+constexpr size_t kSmemBytes =
+    (size_t)(kRecFloats + kPartFloats) * sizeof(float) +
+    (size_t)(2 * kChunk + kChunk) * sizeof(unsigned);
+
+struct BwdRows {
+  __device__ int operator()(int r) const { return r; }
+};
+
+// Reduce-scatter of nine per-lane values over the warp: returns, in lanes
+// 2c and 2c + 1 (c < 9), the warp's sum of component c. Each step keeps
+// the half of the values selected by one lane bit and adds the partner's
+// copy of that half, so the order of every sum is fixed.
+template <int N>
+__device__ __forceinline__ void halve(float (&v)[16], int lane) {
+  const bool upper = (lane & (2 * N)) != 0;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int i = 0; i < N; ++i) {
+    const float send = upper ? v[i] : v[i + N];
+    const float keep = upper ? v[i + N] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * N);
+  }
 }
 
-__global__ void __launch_bounds__(kTilePix, 1)
+__device__ __forceinline__ float warp_transpose_sum(const float (&g)[kRows],
+                                                    int lane) {
+  float v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) v[i] = i < kRows ? g[i] : 0.f;
+  halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
+__global__ void __launch_bounds__(kTilePix, 2)
 rasterize_bwd_kernel(const float* __restrict__ pair, long long pstride,
-                     const int* __restrict__ tile_start,
+                     bool vec16, const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count,
                      const int* __restrict__ cend, int tiles_x, int Hp, int Wp,
                      const float* __restrict__ tfinal,
                      const float* __restrict__ dcolor,
                      const float* __restrict__ dalpha,
                      const float* __restrict__ bg, float* __restrict__ grad) {
-  extern __shared__ float smem[];
-  float* s_rec = smem;                    // [kRows][kChunk]
-  float* s_part = smem + kRows * kChunk;  // [kWarps][kRows][kChunk]
+  extern __shared__ __align__(16) float smem[];
+  float* s_rec = smem;                      // [3][kRows][kChunk]
+  float* s_part = smem + kRecFloats;        // [kWarps][kRows][kPartStride]
+  unsigned* s_mask = reinterpret_cast<unsigned*>(s_part + kPartFloats);
+  unsigned* s_touch = s_mask + 2 * kChunk;  // [kChunk]
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -84,9 +125,10 @@ rasterize_bwd_kernel(const float* __restrict__ pair, long long pstride,
   int n_chunks = (int)((start + count - off0 + kChunk - 1) / kChunk);
   n_chunks = min(n_chunks, cend[t]);
   const int tile_y = t / tiles_x;
-  const int tile_x = t - tile_y * tiles_x;
-  const int py = tile_y * kTileH + tid / kTileW;
-  const int px = tile_x * kTileW + tid % kTileW;
+  const int tx0 = (t - tile_y * tiles_x) * kTileW;
+  const int ty0 = tile_y * kTileH;
+  int px, py;
+  patch_pixel(warp, lane, tx0, ty0, &px, &py);
   const float fx = (float)px;
   const float fy = (float)py;
 
@@ -99,92 +141,145 @@ rasterize_bwd_kernel(const float* __restrict__ pair, long long pstride,
   float T = tf;
   float u = tf * (bg[0] * dc0 + bg[1] * dc1 + bg[2] * dc2) - dalpha[p] * tf;
 
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    const long long base = off0 + (long long)c * kChunk;
+  // step i walks chunk n_chunks - 1 - i; its run inside the chunk: [lo, hi)
+  auto range = [&](int i, int* lo, int* hi) {
+    const long long base = off0 + (long long)(n_chunks - 1 - i) * kChunk;
     const long long lo_ll = (long long)start - base;
     const long long hi_ll = (long long)start + count - base;
-    const int lo = lo_ll > 0 ? (int)lo_ll : 0;
-    const int hi = hi_ll < kChunk ? (int)hi_ll : kChunk;
-    for (int e = tid; e < kRows * kChunk; e += kTilePix) {
-      const int r = e / kChunk;
-      const int k = e - r * kChunk;
-      if (k >= lo && k < hi) s_rec[e] = __ldg(pair + r * pstride + base + k);
+    *lo = lo_ll > 0 ? (int)lo_ll : 0;
+    *hi = hi_ll < kChunk ? (int)hi_ll : kChunk;
+  };
+  auto stage = [&](int i) {
+    if (i < n_chunks) {
+      int lo, hi;
+      range(i, &lo, &hi);
+      stage_chunk<kRows>(s_rec + (i % 3) * kRows * kChunk, pair, pstride,
+                         off0 + (long long)(n_chunks - 1 - i) * kChunk, lo,
+                         hi, vec16, BwdRows(), tid);
+    }
+    cp_async_commit();
+  };
+  auto mask_of = [&](int i) {
+    int lo, hi;
+    range(i, &lo, &hi);
+    if (tid < lo || tid >= hi) return 0u;
+    const float* rec = s_rec + (i % 3) * kRows * kChunk + tid;
+    const Box b = footprint_box(rec[0], rec[kChunk], rec[2 * kChunk],
+                                rec[3 * kChunk], rec[4 * kChunk],
+                                rec[5 * kChunk], rec[6 * kChunk],
+                                rec[7 * kChunk], rec[8 * kChunk]);
+    return patch_mask(b, tx0, ty0);
+  };
+
+  if (n_chunks > 0) {
+    stage(0);
+    stage(1);
+    cp_async_wait_all();
+    __syncthreads();
+    if (tid < kChunk) {
+      s_mask[tid] = mask_of(0);
+      s_touch[tid] = 0u;
     }
     __syncthreads();
+  }
 
-    for (int k = hi - 1; k >= lo; --k) {
-      float g[kRows];
+  for (int i = 0; i < n_chunks; ++i) {
+    // chunk i's records and masks are in place, chunk i + 1's records are
+    // staged; buffer (i + 2) % 3 was last read in step i - 1
+    stage(i + 2);
+    if (tid < kChunk && i + 1 < n_chunks)
+      s_mask[((i + 1) & 1) * kChunk + tid] = mask_of(i + 1);
+    int lo, hi;
+    range(i, &lo, &hi);
+    const long long base = off0 + (long long)(n_chunks - 1 - i) * kChunk;
+    const float* rec = s_rec + (i % 3) * kRows * kChunk;
+    const unsigned* mask = s_mask + (i & 1) * kChunk;
+
+    for (int h = 1; h >= 0; --h) {  // upper half first: back to front
+      const int kb = h * kHalf;
+      const int h_lo = max(lo, kb), h_hi = min(hi, kb + kHalf);
+      for (int k1 = kb + kHalf; k1 > h_lo; k1 -= 32) {
+        const int k0 = k1 - 32;
+        unsigned mine = __ballot_sync(0xffffffffu,
+                                      (mask[k0 + lane] >> warp) & 1u);
+        while (mine) {  // warp-uniform: this warp's pairs, back to front
+          const int j = 31 - __clz(mine);
+          mine &= ~(1u << j);
+          const int k = k0 + j;  // masks outside [lo, hi) are 0
+          float g[kRows];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) g[r] = 0.f;
-      bool touched = false;
-      const float dx = s_rec[0 * kChunk + k] - fx;
-      const float dy = s_rec[1 * kChunk + k] - fy;
-      const float cxx = s_rec[2 * kChunk + k];
-      const float cxy = s_rec[3 * kChunk + k];
-      const float cyy = s_rec[4 * kChunk + k];
-      // rounded op by op as in K1 and the plain versions, so that the gates
-      // decide as they did in the forward
-      const float power = __fsub_rn(
-          __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(cxx, dx), dx),
-                                     __fmul_rn(__fmul_rn(cyy, dy), dy))),
-          __fmul_rn(__fmul_rn(cxy, dx), dy));
-      if (power <= 0.f) {
-        const float g_exp = expf(power);
-        const float a_unc = __fmul_rn(s_rec[5 * kChunk + k], g_exp);
-        const float alpha = fminf(kAlphaMax, a_unc);
-        if (alpha >= kAlphaMin) {
-          touched = true;
-          const float one_minus = 1.f - alpha;
-          const float t_i = T / one_minus;
-          const bool kept = t_i * one_minus >= kTEps;
-          const float w_m = kept ? alpha * t_i : 0.f;
-          const float cr = s_rec[6 * kChunk + k];
-          const float cg = s_rec[7 * kChunk + k];
-          const float cb = s_rec[8 * kChunk + k];
-          const float cdot = cr * dc0 + cg * dc1 + cb * dc2;
-          if (a_unc < kAlphaMax) {
-            const float dl_da = (kept ? t_i * cdot : 0.f) - u / one_minus;
-            const float dl_dpower = dl_da * a_unc;
-            g[0] = dl_dpower * (-(cxx * dx + cxy * dy));
-            g[1] = dl_dpower * (-(cyy * dy + cxy * dx));
-            g[2] = dl_dpower * (-0.5f * dx * dx);
-            g[3] = dl_dpower * (-dx * dy);
-            g[4] = dl_dpower * (-0.5f * dy * dy);
-            g[5] = dl_da * g_exp;
+          for (int r = 0; r < kRows; ++r) g[r] = 0.f;
+          bool touched = false;
+          const float dx = rec[k] - fx;
+          const float dy = rec[kChunk + k] - fy;
+          const float cxx = rec[2 * kChunk + k];
+          const float cxy = rec[3 * kChunk + k];
+          const float cyy = rec[4 * kChunk + k];
+          // rounded op by op as in K1 and the plain versions, so that the
+          // gates decide as they did in the forward
+          const float power = splat_power(dx, dy, cxx, cxy, cyy);
+          if (power <= 0.f) {
+            const float g_exp = expf(power);
+            const float a_unc = __fmul_rn(rec[5 * kChunk + k], g_exp);
+            const float alpha = fminf(kAlphaMax, a_unc);
+            if (alpha >= kAlphaMin) {
+              touched = true;
+              const float one_minus = 1.f - alpha;
+              const float t_i = T / one_minus;
+              const bool kept = t_i * one_minus >= kTEps;
+              const float w_m = kept ? alpha * t_i : 0.f;
+              const float cdot = rec[6 * kChunk + k] * dc0 +
+                                 rec[7 * kChunk + k] * dc1 +
+                                 rec[8 * kChunk + k] * dc2;
+              if (a_unc < kAlphaMax) {
+                const float dl_da = (kept ? t_i * cdot : 0.f) - u / one_minus;
+                const float dl_dpower = dl_da * a_unc;
+                g[0] = dl_dpower * (-(cxx * dx + cxy * dy));
+                g[1] = dl_dpower * (-(cyy * dy + cxy * dx));
+                g[2] = dl_dpower * (-0.5f * dx * dx);
+                g[3] = dl_dpower * (-dx * dy);
+                g[4] = dl_dpower * (-0.5f * dy * dy);
+                g[5] = dl_da * g_exp;
+              }
+              g[6] = w_m * dc0;
+              g[7] = w_m * dc1;
+              g[8] = w_m * dc2;
+              u += w_m * cdot;
+              T = t_i;
+            }
           }
-          g[6] = w_m * dc0;
-          g[7] = w_m * dc1;
-          g[8] = w_m * dc2;
-          u += w_m * cdot;
-          T = t_i;
+          if (__any_sync(0xffffffffu, touched)) {
+            const float s = warp_transpose_sum(g, lane);
+            if ((lane & 1) == 0 && lane < 2 * kRows)
+              s_part[(warp * kRows + (lane >> 1)) * kPartStride + k - kb] = s;
+            if (lane == 0) atomicOr(&s_touch[k], 1u << warp);
+          }
         }
       }
-      // every lane iterates the same k, so the warp is converged here
-      float* part = s_part + (warp * kRows) * kChunk + k;
-      if (__any_sync(0xffffffffu, touched)) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float s = warp_sum(g[r]);
-          if (lane == 0) part[r * kChunk] = s;
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) part[r * kChunk] = 0.f;
-      }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    for (int e = tid; e < kRows * kChunk; e += kTilePix) {
-      const int r = e / kChunk;
-      const int k = e - r * kChunk;
-      if (k >= lo && k < hi) {
+      // block sum of the half: the touching warps' partials, ascending
+      for (int e = tid; e < kRows * kHalf; e += kTilePix) {
+        const int r = e / kHalf;
+        const int k = kb + e - r * kHalf;
+        if (k < h_lo || k >= h_hi) continue;
+        unsigned m = s_touch[k];
+        if (m == 0u) continue;  // the caller zero-filled grad
         float s = 0.f;
-        for (int w = 0; w < kWarps; ++w) s += s_part[(w * kRows + r) * kChunk + k];
+        while (m) {
+          const int w = __ffs(m) - 1;
+          m &= m - 1u;
+          s += s_part[(w * kRows + r) * kPartStride + k - kb];
+        }
         grad[r * pstride + base + k] = s;
       }
+      if (h == 0) cp_async_wait_all();
+      // the next half overwrites the partials
+      __syncthreads();
+      // nobody reads or sets this half's touch masks before the next
+      // chunk's walk of the same half, two barriers on
+      if (tid < kHalf) s_touch[kb + tid] = 0u;
     }
-    // the next chunk overwrites the staged rows and the partials
-    __syncthreads();
   }
 }
 
@@ -210,9 +305,11 @@ extern "C" int log_rasterize_bwd(const void* pair, long long pstride,
   if (err != cudaSuccess) return (int)err;
   const int Hp = tiles_y * kTileH;
   const int Wp = tiles_x * kTileW;
+  // 16-byte copies need every row start 16-byte aligned
+  const bool vec16 = ((uintptr_t)pair % 16 == 0) && (pstride % 4 == 0);
   rasterize_bwd_kernel<<<num_tiles, kTilePix, kSmemBytes,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pair), pstride,
+      static_cast<const float*>(pair), pstride, vec16,
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
       static_cast<const int*>(cend), tiles_x, Hp, Wp,
       static_cast<const float*>(tfinal), static_cast<const float*>(dcolor),

@@ -5,8 +5,8 @@
 // One block of 1024 threads composites one 8 x 128 pixel tile, one thread
 // per pixel. The tile's pair run [start, start + count) of the packed
 // (16, A + 128) pair array is walked in 128-pair chunks from the
-// floor-aligned offset floor(start / 128) * 128; each chunk's records are
-// staged through shared memory, then every thread composites them in order:
+// floor-aligned offset floor(start / 128) * 128; every pixel composites the
+// chunk's pairs in order:
 //   alpha = min(0.99, op * exp(power)), kept iff power <= 0 and
 //           alpha >= 1/255;
 //   w     = T * alpha if T * (1 - alpha) >= 1e-4, else 0;
@@ -20,135 +20,202 @@
 // of its pair (pair row 10, int32 bits), chunk by chunk with the TPU
 // kernel's tie rule (largest id among equal chunk maxima, first chunk wins).
 //
-// Bound on the H100: FP32 and SFU issue inside the block, ~20 flops and
-// one expf per (pair, pixel); the pair records are 40 bytes per pair per
-// tile, read once. Design: sequential per-pixel compositing keeps registers
-// small (no per-chunk transmittance matrices); shared-memory staging turns
-// every record read into a broadcast. Not carried over from the TPU: the
-// log/exp cumprod on the MXU (a TPU device for a sequential recurrence),
-// the bf16 accumulation of the inference mode, and the read-modify-write of
-// per-pair weights in chunks shared by neighbouring tiles (only needed by
-// the TPU's 128-lane DMA alignment).
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Bound on the H100: FP32 operations. The pair records are 40 bytes per
+// pair, read once; the work is ~20 flops and one expf per (pair, pixel)
+// whose alpha gate passes, and the gate passes on only 13-23% of a tile's
+// (pair, pixel) combinations on the main path, so evaluating every pair at
+// every pixel spends most of its instructions on alphas of 0. What bounds
+// this design is the instruction count of its pair loop: ~45 instructions
+// per pair on every warp whose patch the pair's box meets. Design:
+// - footprint culling (footprint.cuh): each warp owns an 8 x 4 pixel patch
+//   (not a 1 x 32 row); each pair gets a conservative pixel box of its gate
+//   set and a 32-bit mask of the patches it meets, once per chunk; a warp
+//   ballots the masks of the chunk and walks only its own pairs, in order.
+//   A skipped pixel would have had alpha 0, so every output is
+//   bit-identical to evaluating all pairs;
+// - triple-buffered staging: chunk c + 2 is copied with cp.async (16-byte
+//   copies where the pointer and pstride allow) and chunk c + 1's masks and
+//   pair-major copy (three float4 per pair, read as broadcasts) are made
+//   while chunk c composites, with one barrier per chunk;
+// - two blocks per SM (__launch_bounds__ min 2): 32 registers a thread,
+//   with a few spills, measured faster than one block at 62 registers;
+// - sequential per-pixel compositing keeps registers small.
+// Not carried over from the TPU: the log/exp cumprod on the MXU, the bf16
+// accumulation of the inference mode, and the read-modify-write of per-pair
+// weights in chunks shared by neighbouring tiles (only needed by the TPU's
+// 128-lane DMA alignment).
+#include "footprint.cuh"
 
 namespace {
 
-constexpr int kTileH = 8;
-constexpr int kTileW = 128;
-constexpr int kTilePix = kTileH * kTileW;
-constexpr int kChunk = 128;
+using namespace footprint;
+
 // staged rows: px py cxx cxy cyy opac r g b, then the caller id (row 10)
 constexpr int kStaged = 10;
 constexpr int kRowGid = 10;
-constexpr float kAlphaMin = (float)(1.0 / 255.0);
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = (float)1e-4;
 
-// -0.5 (cxx dx^2 + cyy dy^2) - cxy dx dy, every product and sum rounded on
-// its own (no FMA contraction) in the plain version's order: the alpha
-// gates (power <= 0, alpha >= 1/255) then decide exactly as in the plain
-// torch version and in K2, which recomputes them.
-__device__ __forceinline__ float splat_power(float dx, float dy, float cxx,
-                                             float cxy, float cyy) {
-  const float pxx = __fmul_rn(__fmul_rn(cxx, dx), dx);
-  const float pyy = __fmul_rn(__fmul_rn(cyy, dy), dy);
-  const float pxy = __fmul_rn(__fmul_rn(cxy, dx), dy);
-  return __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(pxx, pyy)), pxy);
-}
+struct FwdRows {
+  __device__ int operator()(int r) const { return r < 9 ? r : kRowGid; }
+};
 
 template <int STATS>
-__global__ void __launch_bounds__(kTilePix)
+__global__ void __launch_bounds__(kTilePix, 2)
 rasterize_fwd_kernel(const float* __restrict__ pair, long long pstride,
-                     const int* __restrict__ tile_start,
+                     bool vec16, const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count, int tiles_x, int Hp,
                      int Wp, const float* __restrict__ bg,
                      float* __restrict__ color, float* __restrict__ tfinal,
                      int* __restrict__ pid, float* __restrict__ pwp,
                      float* __restrict__ pair_w, int* __restrict__ cend) {
-  __shared__ float s_rec[kStaged][kChunk];
-  __shared__ unsigned s_pw[kChunk];
+  __shared__ __align__(16) float s_rec[3][kStaged][kChunk];
+  // chunk c's records once more, pair-major: px py cxx cxy | cyy opac r g
+  // | b id, so a pair is three broadcast 16-byte reads
+  __shared__ float4 s_pair[2][kChunk][3];
+  __shared__ unsigned s_mask[2][kChunk];
+  __shared__ unsigned s_pw[2][kChunk];
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int start = tile_start[t];
   const int count = tile_count[t];
   const long long off0 = (long long)(start / kChunk) * kChunk;
   const int n_chunks = (int)((start + count - off0 + kChunk - 1) / kChunk);
   const int tile_y = t / tiles_x;
-  const int tile_x = t - tile_y * tiles_x;
-  const int py = tile_y * kTileH + tid / kTileW;
-  const int px = tile_x * kTileW + tid % kTileW;
+  const int tx0 = (t - tile_y * tiles_x) * kTileW;
+  const int ty0 = tile_y * kTileH;
+  int px, py;
+  patch_pixel(warp, lane, tx0, ty0, &px, &py);
   const float fx = (float)px;
   const float fy = (float)py;
+
+  // the tile's run inside chunk c: [lo, hi)
+  auto range = [&](int c, int* lo, int* hi) {
+    const long long base = off0 + (long long)c * kChunk;
+    const long long lo_ll = (long long)start - base;
+    const long long hi_ll = (long long)start + count - base;
+    *lo = lo_ll > 0 ? (int)lo_ll : 0;
+    *hi = hi_ll < kChunk ? (int)hi_ll : kChunk;
+  };
+  auto stage = [&](int c) {
+    if (c < n_chunks) {
+      int lo, hi;
+      range(c, &lo, &hi);
+      stage_chunk<kStaged>(&s_rec[c % 3][0][0], pair, pstride,
+                           off0 + (long long)c * kChunk, lo, hi, vec16,
+                           FwdRows(), tid);
+    }
+    cp_async_commit();
+  };
+  // thread k < kChunk: the patch mask of pair k of chunk c, and its
+  // pair-major copy
+  auto mask_of = [&](int c) {
+    int lo, hi;
+    range(c, &lo, &hi);
+    if (tid < lo || tid >= hi) return 0u;
+    const float(*rec)[kChunk] = s_rec[c % 3];
+    float4* q = s_pair[c & 1][tid];
+    q[0] = make_float4(rec[0][tid], rec[1][tid], rec[2][tid], rec[3][tid]);
+    q[1] = make_float4(rec[4][tid], rec[5][tid], rec[6][tid], rec[7][tid]);
+    q[2] = make_float4(rec[8][tid], rec[9][tid], 0.f, 0.f);
+    const Box b = footprint_box(rec[0][tid], rec[1][tid], rec[2][tid],
+                                rec[3][tid], rec[4][tid], rec[5][tid],
+                                rec[6][tid], rec[7][tid], rec[8][tid]);
+    return patch_mask(b, tx0, ty0);
+  };
+  auto write_pair_w = [&](int c) {
+    int lo, hi;
+    range(c, &lo, &hi);
+    if (tid >= lo && tid < hi)
+      pair_w[off0 + (long long)c * kChunk + tid] =
+          __uint_as_float(s_pw[c & 1][tid]);
+  };
+
+  if (n_chunks > 0) {
+    stage(0);
+    stage(1);
+    cp_async_wait_all();
+    __syncthreads();
+    if (tid < kChunk) {
+      s_mask[0][tid] = mask_of(0);
+      if (STATS > 0) s_pw[0][tid] = 0u;
+    }
+    __syncthreads();
+  }
 
   float T = 1.f, cr = 0.f, cg = 0.f, cb = 0.f;
   float best_w = 0.f;
   int best_id = -1;
   int c = 0;
   while (c < n_chunks) {
-    const long long base = off0 + (long long)c * kChunk;
-    // the tile's run inside this chunk: [lo, hi)
-    const long long lo_ll = (long long)start - base;
-    const long long hi_ll = (long long)start + count - base;
-    const int lo = lo_ll > 0 ? (int)lo_ll : 0;
-    const int hi = hi_ll < kChunk ? (int)hi_ll : kChunk;
-    for (int e = tid; e < kStaged * kChunk; e += kTilePix) {
-      const int r = e / kChunk;
-      const int k = e - r * kChunk;
-      if (k >= lo && k < hi) {
-        const int row = r < 9 ? r : kRowGid;
-        s_rec[r][k] = __ldg(pair + row * pstride + base + k);
+    // chunk c's records and masks are in place; chunk c + 1's records are
+    // staged; buffer (c + 2) % 3 was last read in chunk c - 1
+    stage(c + 2);
+    if (tid < kChunk) {
+      if (c + 1 < n_chunks) s_mask[(c + 1) & 1][tid] = mask_of(c + 1);
+      if (STATS > 0) {
+        if (c > 0) write_pair_w(c - 1);
+        s_pw[(c + 1) & 1][tid] = 0u;
       }
     }
-    if (STATS > 0 && tid < kChunk) s_pw[tid] = 0u;
-    __syncthreads();
 
+    int lo, hi;
+    range(c, &lo, &hi);
+    const float4(*rec)[3] = s_pair[c & 1];
+    const unsigned* mask = s_mask[c & 1];
+    unsigned* spw = s_pw[c & 1];
     float cw = 0.f;
     int cid = -1;
-    for (int k = lo; k < hi; ++k) {
-      const float dx = s_rec[0][k] - fx;
-      const float dy = s_rec[1][k] - fy;
-      const float power = splat_power(dx, dy, s_rec[2][k], s_rec[3][k],
-                                      s_rec[4][k]);
-      float alpha = 0.f;
-      if (power <= 0.f) {
-        alpha = fminf(kAlphaMax, __fmul_rn(s_rec[5][k], expf(power)));
-        if (!(alpha >= kAlphaMin)) alpha = 0.f;
-      }
-      const float t_after = T * (1.f - alpha);
-      const float w = t_after >= kTEps ? T * alpha : 0.f;
-      cr += w * s_rec[6][k];
-      cg += w * s_rec[7][k];
-      cb += w * s_rec[8][k];
-      T = t_after;
-      if (STATS == 2) {
-        const int gid = __float_as_int(s_rec[9][k]);
-        if (w > cw) {
-          cw = w;
-          cid = gid;
-        } else if (w == cw && w > 0.f && gid > cid) {
-          cid = gid;
+    for (int k0 = lo & ~31; k0 < hi; k0 += 32) {
+      unsigned mine = __ballot_sync(0xffffffffu,
+                                    (mask[k0 + lane] >> warp) & 1u);
+      while (mine) {  // warp-uniform: this warp's pairs, in order
+        const int k = k0 + __ffs(mine) - 1;
+        mine &= mine - 1u;
+        const float4 q0 = rec[k][0], q1 = rec[k][1], q2 = rec[k][2];
+        const float dx = q0.x - fx;
+        const float dy = q0.y - fy;
+        const float power = splat_power(dx, dy, q0.z, q0.w, q1.x);
+        float alpha = 0.f;
+        if (power <= 0.f) {
+          alpha = fminf(kAlphaMax, __fmul_rn(q1.y, expf(power)));
+          if (!(alpha >= kAlphaMin)) alpha = 0.f;
         }
-      }
-      if (STATS > 0) {
-        // w >= 0, so its bit pattern orders like the value
-        const unsigned m = __reduce_max_sync(0xffffffffu, __float_as_uint(w));
-        if ((tid & 31) == 0 && m != 0u) atomicMax(&s_pw[k], m);
+        const float t_after = T * (1.f - alpha);
+        const float w = t_after >= kTEps ? T * alpha : 0.f;
+        cr += w * q1.z;
+        cg += w * q1.w;
+        cb += w * q2.x;
+        T = t_after;
+        if (STATS == 2) {
+          const int gid = __float_as_int(q2.y);
+          if (w > cw) {
+            cw = w;
+            cid = gid;
+          } else if (w == cw && w > 0.f && gid > cid) {
+            cid = gid;
+          }
+        }
+        if (STATS > 0) {
+          // w >= 0, so its bit pattern orders like the value
+          const unsigned m = __reduce_max_sync(0xffffffffu,
+                                               __float_as_uint(w));
+          if (lane == 0 && m != 0u) atomicMax(&spw[k], m);
+        }
       }
     }
     if (STATS == 2 && cw > best_w) {
       best_w = cw;
       best_id = cid;
     }
-    if (STATS > 0) {
-      __syncthreads();
-      if (tid >= lo && tid < hi) pair_w[base + tid] = __uint_as_float(s_pw[tid]);
-    }
+    cp_async_wait_all();
     ++c;
-    // also orders this chunk's shared reads before the next chunk's staging
+    // orders this chunk's reads and atomics before the next chunk's
+    // staging, masks and pair_w write
     if (!__syncthreads_or(T >= kTEps)) break;
   }
+  if (STATS > 0 && c > 0 && tid < kChunk) write_pair_w(c - 1);
 
   const long long npix = (long long)Hp * Wp;
   const long long p = (long long)py * Wp + px;
@@ -182,6 +249,8 @@ extern "C" int log_rasterize_fwd(const void* pair, long long pstride,
   const int Wp = tiles_x * kTileW;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* pr = static_cast<const float*>(pair);
+  // 16-byte copies need every row start 16-byte aligned
+  const bool vec16 = ((uintptr_t)pair % 16 == 0) && (pstride % 4 == 0);
   const int* ts = static_cast<const int*>(tile_start);
   const int* tc = static_cast<const int*>(tile_count);
   const float* b = static_cast<const float*>(bg);
@@ -193,13 +262,16 @@ extern "C" int log_rasterize_fwd(const void* pair, long long pstride,
   int* ce = static_cast<int*>(cend);
   if (stats == 0) {
     rasterize_fwd_kernel<0><<<num_tiles, kTilePix, 0, s>>>(
-        pr, pstride, ts, tc, tiles_x, Hp, Wp, b, co, tf, pi, pp, pw, ce);
+        pr, pstride, vec16, ts, tc, tiles_x, Hp, Wp, b, co, tf, pi, pp, pw,
+        ce);
   } else if (stats == 1) {
     rasterize_fwd_kernel<1><<<num_tiles, kTilePix, 0, s>>>(
-        pr, pstride, ts, tc, tiles_x, Hp, Wp, b, co, tf, pi, pp, pw, ce);
+        pr, pstride, vec16, ts, tc, tiles_x, Hp, Wp, b, co, tf, pi, pp, pw,
+        ce);
   } else {
     rasterize_fwd_kernel<2><<<num_tiles, kTilePix, 0, s>>>(
-        pr, pstride, ts, tc, tiles_x, Hp, Wp, b, co, tf, pi, pp, pw, ce);
+        pr, pstride, vec16, ts, tc, tiles_x, Hp, Wp, b, co, tf, pi, pp, pw,
+        ce);
   }
   return (int)cudaGetLastError();
 }

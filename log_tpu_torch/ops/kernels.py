@@ -2,10 +2,11 @@
 
 The sources compile with nvcc, one process per source, all started
 together, and link into ONE shared library with a plain C interface (no
-PyTorch headers, so the build takes seconds), loaded with ctypes. The library is built at first use into `log_tpu_torch.BUILD_DIR`
-under a name that carries a hash of the sources and flags, so an edited
-source rebuilds. Nothing here runs at import time: importing needs neither
-nvcc nor a GPU.
+PyTorch headers, so the build takes seconds), loaded with ctypes. The
+library is built at first use into `log_tpu_torch.BUILD_DIR` under a name
+that carries a hash of the flags and of every source and header under
+csrc/, so an edited file rebuilds. Nothing here runs at import time:
+importing needs neither nvcc nor a GPU.
 
 Every kernel wrapper (ops/expand.py, ops/rasterize_tiled.py, ops/compact.py)
 adds one to its entry of `LAUNCHES` where it launches its kernel, and
@@ -81,10 +82,12 @@ def _nvcc() -> str:
 
 
 def _source_tag() -> str:
+    """Hash of the flags and of every .cu and .cuh file under csrc/, so
+    that an edited shared header rebuilds too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.rglob("*.cu*")):
+        h.update(path.relative_to(CSRC).as_posix().encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -385,6 +385,54 @@ def build_pairs(splats, colors, image_height: int, image_width: int,
 # --------------------------------------------------------------------------
 # K1: per-tile compositing
 # --------------------------------------------------------------------------
+# K1 and K2 give each warp a PATCH_H x PATCH_W pixel patch of the tile
+# (patches row-major) and skip the pairs whose footprint box misses it
+# (csrc/footprint.cuh)
+PATCH_W, PATCH_H = 4, 8
+FOOT_NONE = 1 << 30  # "no box": (-FOOT_NONE, FOOT_NONE) on both axes
+
+
+def footprint_box(px, py, cxx, cxy, cyy, opacity, r, g, b):
+    """Plain mirror of csrc/footprint.cuh's footprint_box: a conservative
+    inclusive pixel box (x0, x1, y0, y1) (int64 tensors) of the pair's
+    alpha gate set {power <= 0, min(0.99, op exp(power)) >= f32(1/255)},
+    from f32 record rows, computed in float64.
+
+    tau = ln(op / f32(1/255)) + 1e-5, divided by (1 - 16 u kappa) (u =
+    2^-24, kappa = (sqrt(cxx cyy) + |cxy|) / (sqrt(cxx cyy) - |cxy|) bounds
+    the f32 power's rounding relative to Q = -power); the half extents are
+    sqrt(2 tau cyy / det) and sqrt(2 tau cxx / det), padded by a pixel.
+    op < f32(1/255) gives an empty box (x0 > x1); a non-finite field,
+    cxx <= 0, det <= 0, 16 u kappa > 1/4 or a centre or extent past 2^22
+    gives no box (every pixel evaluates the pair).
+    """
+    rows = [px, py, cxx, cxy, cyy, opacity, r, g, b]
+    finite = torch.stack([torch.isfinite(t) for t in rows]).all(dim=0)
+    a_min = float(torch.tensor(ALPHA_MIN, dtype=torch.float32))
+    x, y, dxx, dxy, dyy, op = (t.to(torch.float64) for t in rows[:6])
+    det = dxx * dyy - dxy * dxy
+    s = torch.sqrt(torch.clamp(dxx * dyy, min=0.0))
+    kappa = (s + dxy.abs()) / (s - dxy.abs())
+    rel = 16.0 * 2.0 ** -24 * kappa
+    tau = (torch.log(op / a_min) + 1e-5) / (1.0 - rel)
+    rx = torch.sqrt(2.0 * tau * dyy / det)
+    ry = torch.sqrt(2.0 * tau * dxx / det)
+    lim = 2.0 ** 22
+    boxed = (finite & (op >= a_min) & (dxx > 0) & (det > 0) & (rel <= 0.25)
+             & (x.abs() <= lim) & (y.abs() <= lim) & (rx <= lim)
+             & (ry <= lim))
+    empty = finite & (op < a_min)
+    out = []
+    for lo, hi in ((x - rx, x + rx), (y - ry, y + ry)):
+        lo = torch.floor(torch.where(boxed, lo, 0.0)).to(torch.int64) - 1
+        hi = torch.ceil(torch.where(boxed, hi, 0.0)).to(torch.int64) + 1
+        out.append(torch.where(boxed, lo, torch.where(empty, FOOT_NONE,
+                                                      -FOOT_NONE)))
+        out.append(torch.where(boxed, hi, torch.where(empty, -FOOT_NONE,
+                                                      FOOT_NONE)))
+    return tuple(out)
+
+
 def _tiles_to_image(x, tiles_x: int, tiles_y: int):
     """(num_tiles, C, TILE_PIX) per-tile rows -> (C, Hp, Wp) image."""
     C = x.shape[1]

@@ -293,3 +293,84 @@ def test_stream_compact_kernel_exact(cuda, density, k_frac):
     for n in cols:
         assert torch.equal(_bits(got[0][n]), _bits(want[0][n])), n
     assert int(got[2].sum()) == min(k, int(keep.sum()))
+
+
+# --------------------------------------- K1 / K2 footprint culling, staging
+def _adversarial(cuda, seed, pstride_mult4=False, misalign=False):
+    """tests/test_torch_footprint.py's 2 x 2 tiles on the card: boxes
+    ending on patch borders, op = f32(1/255) and just below, thin,
+    degenerate and NaN conics, tile-wide splats, a run of 10 chunks that
+    saturates mid-chunk. Its pstride is not a multiple of 4 (4-byte
+    copies); pstride_mult4 pads it to one (16-byte copies), misalign
+    places the array 4 bytes past a 16-byte boundary (4-byte copies)."""
+    from test_torch_footprint import _tile_pairs
+
+    pair, ts, tc, tiles_x, tiles_y = _tile_pairs(seed)
+    ps = pair.shape[1]
+    if pstride_mult4:
+        ps = (ps + 3) // 4 * 4
+    flat = torch.zeros(16 * ps + 4, device=cuda)
+    off = 1 if misalign else 0
+    data = flat[off:off + 16 * ps].view(16, ps)
+    data[:, :pair.shape[1]] = pair.to(cuda)
+    assert (data.data_ptr() % 16 == 0) != misalign
+    return (data, ts.to(cuda), tc.to(cuda),
+            torch.tensor([0.1, 0.2, 0.3], device=cuda), tiles_x, tiles_y)
+
+
+@pytest.mark.parametrize("with_stats", [False, "weights", True])
+@pytest.mark.parametrize("seed", [3, 4])
+def test_rasterize_forward_adversarial(cuda, with_stats, seed):
+    """K1 on adversarial records against its plain version (K1's
+    tolerances), and the same bits from the 16-byte and 4-byte copies."""
+    args = _adversarial(cuda, seed)
+    got = rt.rasterize_forward(*args, with_stats)
+    want = rt.rasterize_forward_plain(*args, with_stats)
+    torch.cuda.synchronize()
+    assert torch.equal(got[5], want[5])
+    assert int(got[5][1]) < 10  # tile 1 stopped on saturation
+    for a, b in zip(got[:2], want[:2]):
+        assert (a - b).abs().max() < 5e-3
+        assert (a - b).abs().mean() < 1e-5
+    assert (got[2] != want[2]).float().mean() < 1e-2
+    assert ((got[4] - want[4]).abs() > 1e-6).float().mean() < 1e-2
+    for variant in ({"pstride_mult4": True}, {"misalign": True},
+                    {"pstride_mult4": True, "misalign": True}):
+        other = rt.rasterize_forward(*_adversarial(cuda, seed, **variant),
+                                     with_stats)
+        n = args[0].shape[1]
+        for a, b in zip(got, other):
+            if a.dim() == 1 and a.numel() != b.numel():  # pair_w
+                b = b[:n]
+            assert torch.equal(_bits(a), _bits(b)), variant
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_rasterize_backward_adversarial(cuda, seed):
+    """K2 on adversarial records: within 1e-3 of the plain version's
+    largest gradient where that is finite (the plain version turns NaN
+    conics into NaN rows, the kernel into zeros), bit-identical across two
+    launches and across the 16-byte and 4-byte copies."""
+    args = _adversarial(cuda, seed)
+    fwd = rt.rasterize_forward(*args, True)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    dcolor = torch.randn(fwd[0].shape, device=cuda, generator=g)
+    dalpha = torch.randn(fwd[1].shape, device=cuda, generator=g)
+    bargs = (args[0], args[1], args[2], fwd[5], fwd[1], dcolor, dalpha,
+             args[3], args[4], args[5])
+    got = rt.rasterize_backward(*bargs)
+    again = rt.rasterize_backward(*bargs)
+    want = rt.rasterize_backward_plain(*bargs)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(again))
+    finite = torch.isfinite(want).all(dim=0)
+    scale = want[:9, finite].abs().max()
+    assert scale > 0
+    assert (got[:9, finite] - want[:9, finite]).abs().max() <= 1e-3 * scale
+    assert torch.isfinite(got).all()
+    n = args[0].shape[1]
+    for variant in ({"pstride_mult4": True}, {"misalign": True}):
+        a2 = _adversarial(cuda, seed, **variant)
+        other = rt.rasterize_backward(a2[0], a2[1], a2[2], fwd[5], fwd[1],
+                                      dcolor, dalpha, a2[3], a2[4], a2[5])
+        assert torch.equal(_bits(got), _bits(other[:, :n])), variant
