@@ -28,12 +28,14 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    then, on the same model with tree.cut_method = "flat_slice":
    a. flat_slice frames: frame 0's K3p and K5 inputs replayed against their
       plain versions (K3p bit-exact, K5 within K1's tolerances) and every
-      K4 pack of that frame bit-exact, both timed; 12 orbit frames (the
+      K4 pack of that frame bit-exact, both timed (K5 also by the profiler:
+      the device time of its own launch); 12 orbit frames (the
       weight cull every frame), K5 once per frame; frame 0 with the plain
       versions, and against the generic frame 0 within the JAX package's
       cross-path bounds (|cut difference| <= max(64, 2%), PSNR > 35 dB);
    b. the same frames with LOG_TPU_COMPACT=pallas: K6 bit-exact against its
-      plain version on frame 0's inputs, once per frame, and frames
+      plain version on frame 0's inputs (timed by events and by the
+      profiler, one launch per call), once per frame, and frames
       bit-identical to a.'s;
    c. block-pruned frames: a reference frame 0 at SH degree 0, then
       LoG.optimize_render_layout() and check_render_every=4, 12 orbit
@@ -66,7 +68,9 @@ train}_profile.txt.
 The line before the last is the kernel table as JSON (per kernel: launches
 by phase and per call, max_abs_err, ms, plain_ms, bound_ms, bound_by,
 library_ms, null where no single PyTorch call computes the function, with
-library_note); the last line is {"ok": true, "device": {...}}.
+library_note; for K5 and K6 also device_ms, the profiler's device time of
+the kernel's own launches, where ms also holds the host's gaps between
+calls); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -141,7 +145,7 @@ KERNEL_SOURCES = {
                       "log_tpu/ops/rasterize_tiled.py:1370"),
     "expand_packed": ("log_tpu_torch/csrc/expand.cu",
                       "log_tpu/ops/expand_pallas.py:238"),
-    "rasterize_fwd_packed": ("log_tpu_torch/csrc/rasterize_fwd_packed.cu",
+    "rasterize_fwd_packed": ("log_tpu_torch/csrc/rasterize_fwd.cu",
                              "log_tpu/ops/rasterize_tiled.py:1094"),
     "stream_compact": ("log_tpu_torch/csrc/compact.cu",
                        "log_tpu/ops/compact_pallas.py:48"),
@@ -296,7 +300,9 @@ def record_kernel_inputs(model, renderer, batch):
 
 
 def device_ms(fn, reps):
-    """Mean device milliseconds of fn over reps runs, after one warm-up."""
+    """Mean milliseconds of fn over reps runs, after one warm-up, between
+    two CUDA events: the device time of its launches and any gaps the host
+    leaves between them (see kernel_device_ms)."""
     import torch
 
     fn()
@@ -309,6 +315,34 @@ def device_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _self_device_us(e):
+    """A profiler row's own device microseconds (the attribute's name
+    differs between torch versions)."""
+    us = getattr(e, "self_device_time_total", None)
+    return e.self_cuda_time_total if us is None else us
+
+
+def kernel_device_ms(fn, reps, kernel):
+    """(ms, launches) per call of fn: the device time of the CUDA kernels
+    whose name holds `kernel`, over reps calls under torch.profiler after
+    one warm-up, and their launch count; without the host's gaps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    return (sum(_self_device_us(e) for e in rows) / 1e3 / reps,
+            sum(e.count for e in rows) / reps)
 
 
 def _bits(t):
@@ -654,6 +688,9 @@ def compare_packed_kernels(calls, log):
     err = max(float((a - b).abs().max()) for a, b in zip(k, p))
     mean = max(float((a - b).abs().mean()) for a, b in zip(k, p))
     ms = device_ms(lambda: rt.rasterize_forward_packed(*args, **kw), 10)
+    dev_ms, dev_n = kernel_device_ms(
+        lambda: rt.rasterize_forward_packed(*args, **kw), 10,
+        "rasterize_fwd_kernel")
     pms = device_ms(lambda: rt.rasterize_forward_packed_plain(*args, **kw), 2)
     pairs, dense, gated = composite_counts(args[0], args[1], args[2],
                                            full[5], args[4], packed=True)
@@ -662,20 +699,24 @@ def compare_packed_kernels(calls, log):
                      + k[1].numel() * 16, gated * COMPOSITE_OPS)
     log(f"K5 rasterize_fwd_packed pairs={args[0].shape[1]}: color/tfinal "
         f"max_abs={err:.3g} mean_abs={mean:.3g}; composited pairs {pairs}, "
-        f"(pair, pixel) dense {dense} gated {gated}; kernel {ms:.4f} ms, "
-        f"plain {pms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+        f"(pair, pixel) dense {dense} gated {gated} "
+        f"({100 * gated / max(dense, 1):.2f}%); kernel {ms:.4f} ms "
+        f"(profiler: {dev_ms:.4f} ms in {dev_n:g} launch per call), plain "
+        f"{pms:.4f} ms, bound {b_ms:.4f} ms ({by})")
     if err > K1_MAX_ABS or mean > K1_MEAN_ABS:
         failures.append("K5 rasterize_forward_packed disagrees with plain")
+    if dev_n != 1:
+        failures.append(f"K5: the profiler saw {dev_n} launches per call")
     rows["rasterize_fwd_packed"] = {
-        "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
-        "bound_by": by, "pairs": pairs, "dense_pair_pixels": dense,
-        "gated_pair_pixels": gated}
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": pms,
+        "bound_ms": b_ms, "bound_by": by, "pairs": pairs,
+        "dense_pair_pixels": dense, "gated_pair_pixels": gated}
     return rows, failures
 
 
 def compare_k6(calls, log):
     """K6 against its plain version on frame 0's compaction inputs:
-    bit-exact."""
+    bit-exact, in one launch per call."""
     import torch
 
     from log_tpu_torch.ops import compact
@@ -689,6 +730,8 @@ def compare_k6(calls, log):
     err = max(float((k[0][n].double() - p[0][n].double()).abs().nan_to_num()
                     .max()) for n in k[0])
     ms = device_ms(lambda: compact.stream_compact_cols(*args, **kw), 10)
+    dev_ms, dev_n = kernel_device_ms(
+        lambda: compact.stream_compact_cols(*args, **kw), 10, "compact")
     pms = device_ms(lambda: compact.stream_compact_cols_plain(*args, **kw), 10)
     cols, keep, kk = args
     # bytes the compaction needs: the mask, the words of the rows it keeps
@@ -696,12 +739,21 @@ def compare_k6(calls, log):
     kept = int(keep.sum())
     moved = min(kept, kk) * sum(c.element_size() for c in cols.values())
     b_ms, by = bound(tensor_bytes(keep) + moved + tensor_bytes(k), 0)
+    # the share of the columns' 32-byte sectors that hold a kept row: what
+    # a gather of the kept words fetches from device memory
+    cap8 = keep.shape[0] // 8 * 8
+    sectors = float(keep[:cap8].view(-1, 8).any(dim=1).float().mean())
     log(f"K6 stream_compact cap={keep.shape[0]} columns={len(cols)} k={kk} "
-        f"kept={kept}: exact={exact} max_abs={err:.3g}; kernel "
-        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+        f"kept={kept} (in {100 * sectors:.1f}% of the 32-byte sectors): "
+        f"exact={exact} max_abs={err:.3g}; kernel "
+        f"{ms:.4f} ms (profiler: {dev_ms:.4f} ms in {dev_n:g} launch per "
+        f"call), plain {pms:.4f} ms, bound {b_ms:.4f} ms ({by})")
     fails = [] if exact else ["K6 stream_compact_cols is not bit-exact"]
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
-            "bound_by": by}, fails
+    if dev_n != 1:
+        fails.append(f"K6: the profiler saw {dev_n} launches per call")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
+            "kept_sector_share": sectors}, fails
 
 
 def render_slice_phases(model, renderer, batches, generic0, log):
@@ -1056,10 +1108,7 @@ def profile_window(label, run, n, wall_ms, log, ranges=False):
     avgs = prof.key_averages()
 
     def dev_ms(e):  # per call
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        return us / 1e3 / n
+        return _self_device_us(e) / 1e3 / n
 
     # the step's record_function ranges also appear on the device side (as
     # spans); they are not kernels

@@ -1,6 +1,6 @@
-// Shared by K1 (rasterize_fwd.cu) and K2 (rasterize_bwd.cu): the tile and
-// chunk geometry, the splat power in the plain version's op order, the
-// conservative pixel box of a pair's alpha gate, the warp-to-pixel-patch
+// Shared by K1 and K5 (rasterize_fwd.cu) and K2 (rasterize_bwd.cu): the
+// tile and chunk geometry, the splat power in the plain version's op order,
+// the conservative pixel box of a pair's alpha gate, the warp-to-pixel-patch
 // map, and the cp.async chunk staging.
 //
 // The footprint box. A pair's alpha gate passes where power <= 0 and
@@ -18,9 +18,22 @@
 //   op < f32(1/255): empty box (op * e <= op for e = exp(power <= 0) <= 1);
 //   any non-finite field, cxx <= 0, det <= 0, 16 u kappa > 1/4, or a centre
 //   or extent past 2^22 px: no box (every pixel evaluates the pair).
+// The log-opacity box (K5's packed records, LOG_OP). There the gate is
+// power <= 0 and min(0.99, expf(s)) >= A with s = fl(power + lop), A =
+// f32(1/255) and lop a bf16 log-opacity. expf errs by at most 2 ulp
+// (2^-22 relative), so a passing pixel has s >= ln A - 2.4e-7; the sum
+// rounds by at most u |power + lop|, and |power + lop| < 5.6 wherever
+// s >= ln A - 2.4e-7 and the sum is negative (a non-negative sum already
+// gives power >= -lop), so power >= ln A - lop - 5.8e-7; and
+// power <= -Q (1 - 4 u kappa) as above. Hence Q <= (lop - ln A + 5.8e-7) /
+// (1 - 4 u kappa), which tau = (lop - ln A + 1e-5) / (1 - 16 u kappa)
+// covers with K1's margins (1e-5 absolute, four times the relative bound),
+// the same pixel of padding and the same "no box" rules.
+//   lop < ln A - 1e-5: empty box (for power <= 0, s <= lop because rounding
+//   is monotone, and expf(s) <= e^lop (1 + 2^-22) < A (1 - 1e-5 + 2.4e-7)).
 // A pixel outside the box has alpha 0 in the kernels and in the plain
 // versions, so skipping it changes no output bit. The plain torch mirror
-// is ops/rasterize_tiled.py:footprint_box.
+// is ops/rasterize_tiled.py:footprint_box (log_opacity=True for K5).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,12 +50,15 @@ constexpr int kChunk = 128;
 constexpr float kAlphaMin = (float)(1.0 / 255.0);
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = (float)1e-4;
+// ln(kAlphaMin) in double (the plain mirror's math.log of the same f32)
+constexpr double kLnAlphaMin = -5.541263486019444;
 
 // Each warp owns a compact pixel patch of the tile: kPatchW columns by
 // kPatchH rows, patches laid out row-major over the tile. The warp skips a
 // pair whose box misses its patch (a warp-uniform branch).
-// 8 x 4 measured a few percent faster than 4 x 8 for K1 and K2; the plain
-// mirror is ops/rasterize_tiled.py:PATCH_W / PATCH_H
+// 8 rows x 4 columns measured a few percent faster than 4 rows x 8 columns
+// for K1 and K2; the plain mirror is ops/rasterize_tiled.py:PATCH_W /
+// PATCH_H
 constexpr int kPatchW = 4;
 constexpr int kPatchH = 32 / kPatchW;
 constexpr int kPatchesX = kTileW / kPatchW;
@@ -68,6 +84,8 @@ __device__ __forceinline__ float splat_power(float dx, float dy, float cxx,
   return __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(pxx, pyy)), pxy);
 }
 
+// LOG_OP: `op` is a log-opacity (K5's records), else an opacity (K1, K2).
+template <bool LOG_OP = false>
 __device__ __forceinline__ Box footprint_box(float px, float py, float cxx,
                                              float cxy, float cyy, float op,
                                              float r, float g, float b) {
@@ -78,7 +96,8 @@ __device__ __forceinline__ Box footprint_box(float px, float py, float cxx,
         isfinite(cyy) && isfinite(op) && isfinite(r) && isfinite(g) &&
         isfinite(b)))
     return none;
-  if (op < kAlphaMin) return empty;
+  if (LOG_OP ? (double)op - kLnAlphaMin + 1e-5 < 0.0 : op < kAlphaMin)
+    return empty;
   const double dxx = cxx, dxy = cxy, dyy = cyy;
   const double det = dxx * dyy - dxy * dxy;  // products exact in double
   if (!(dxx > 0.0) || !(det > 0.0)) return none;
@@ -86,7 +105,9 @@ __device__ __forceinline__ Box footprint_box(float px, float py, float cxx,
   const double kappa = (s + fabs(dxy)) / (s - fabs(dxy));
   const double rel = 16.0 * 5.9604644775390625e-8 * kappa;  // 16 u kappa
   if (!(rel <= 0.25)) return none;
-  const double tau = (log((double)op / (double)kAlphaMin) + 1e-5) /
+  const double tau = ((LOG_OP ? (double)op - kLnAlphaMin
+                              : log((double)op / (double)kAlphaMin)) +
+                      1e-5) /
                      (1.0 - rel);
   const double rx = sqrt(2.0 * tau * dyy / det);
   const double ry = sqrt(2.0 * tau * dxx / det);

@@ -4,12 +4,12 @@ log_tpu/ops/compact_pallas.py.
 The render frame's slice compaction moves the kept rows of a few capacity
 columns (f32, and int32 holding u32 bit patterns) to the front, in row
 order. `stream_compact_cols` launches the CUDA kernel (csrc/compact.cu:
-block counts, their exclusive scan, a ranked scatter) on CUDA tensors and
-runs `stream_compact_cols_plain` on CPU tensors. Both have the contract of
-the sort compaction (model/train_step.py `_compact_flat_cols_sort`): the
-first k kept rows, zero-filled lanes past the kept count, index = cap
-there. Words move as raw bits, so NaN payloads and large int32 values stay
-exact.
+one cooperative launch that counts, scans the block counts and scatters)
+on CUDA tensors and runs `stream_compact_cols_plain` on CPU tensors. Both
+have the contract of the sort compaction (model/train_step.py
+`_compact_flat_cols_sort`): the first k kept rows, zero-filled lanes past
+the kept count, index = cap there. Words move as raw bits, so NaN payloads
+and large int32 values stay exact.
 """
 from __future__ import annotations
 
@@ -20,7 +20,10 @@ import torch
 from . import kernels
 
 MAX_COLS = 16
-BLOCK_ROWS = 1024  # rows per CUDA block of the count and scatter launches
+BLOCK_ROWS = 1024  # rows per tile of the kernel, one per thread
+# (device, words) -> the kernel's int32 scratch (its blocks' kept counts).
+# Every call writes the words it reads, so calls on one stream may share it.
+_SCRATCH = {}
 
 
 def _check_cols(cols: dict, keep, k: int):
@@ -57,6 +60,13 @@ def stream_compact_cols_plain(cols: dict, keep, k: int):
     return slices, index, index < cap
 
 
+def _scratch(dev, words: int):
+    key = (dev, words)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = torch.empty((words,), dtype=torch.int32, device=dev)
+    return _SCRATCH[key]
+
+
 def stream_compact_cols(cols: dict, keep, k: int):
     """Compact (cap,) columns by the bool mask `keep`: returns (slices,
     index, lane_valid) where slices[name] holds the first k kept rows of
@@ -71,18 +81,19 @@ def stream_compact_cols(cols: dict, keep, k: int):
     kernels.require_cuda("stream_compact_cols", keep, *cols.values())
     cap = keep.shape[0]
     dev = keep.device
-    n_blocks = -(-cap // BLOCK_ROWS)
     out = torch.empty((len(names), k), dtype=torch.int32, device=dev)
     index = torch.empty((k,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((2 * n_blocks + 1,), dtype=torch.int32, device=dev)
+    valid = torch.empty((k,), dtype=torch.bool, device=dev)
+    scratch = _scratch(dev, -(-cap // BLOCK_ROWS))
     ptrs = (ctypes.c_void_p * len(names))(
         *(cols[n].data_ptr() for n in names))
     lib = kernels.library()
     rc = lib.log_stream_compact(
         kernels.ptr(keep), cap, k, ptrs, len(names), kernels.ptr(out),
-        kernels.ptr(index), kernels.ptr(scratch), kernels.stream(),
+        kernels.ptr(index), kernels.ptr(valid), kernels.ptr(scratch),
+        kernels.stream(),
     )
     kernels.check(rc, "stream_compact_cols")
     kernels.LAUNCHES["stream_compact"] += 1
     slices = {n: out[i].view(cols[n].dtype) for i, n in enumerate(names)}
-    return slices, index, index < cap
+    return slices, index, valid

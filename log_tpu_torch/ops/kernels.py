@@ -29,7 +29,7 @@ from .. import BUILD_DIR
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("pack.cu", "expand.cu", "rasterize_fwd.cu", "rasterize_bwd.cu",
-           "rasterize_fwd_packed.cu", "compact.cu")
+           "compact.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -56,7 +56,7 @@ _SIGNATURES = {
     "log_rasterize_fwd_packed": [_VP, _LL, _VP, _VP, _I, _I, _I, _VP, _VP,
                                  _VP, _VP],
     "log_stream_compact": [_VP, _LL, _I, ctypes.POINTER(_VP), _I, _VP, _VP,
-                           _VP, _VP],
+                           _VP, _VP, _VP],
 }
 
 _lock = threading.Lock()

@@ -37,6 +37,7 @@ counts, tile keys and the pair demand match it exactly.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -385,26 +386,30 @@ def build_pairs(splats, colors, image_height: int, image_width: int,
 # --------------------------------------------------------------------------
 # K1: per-tile compositing
 # --------------------------------------------------------------------------
-# K1 and K2 give each warp a PATCH_H x PATCH_W pixel patch of the tile
+# K1, K2 and K5 give each warp a PATCH_H x PATCH_W pixel patch of the tile
 # (patches row-major) and skip the pairs whose footprint box misses it
 # (csrc/footprint.cuh)
 PATCH_W, PATCH_H = 4, 8
 FOOT_NONE = 1 << 30  # "no box": (-FOOT_NONE, FOOT_NONE) on both axes
 
 
-def footprint_box(px, py, cxx, cxy, cyy, opacity, r, g, b):
+def footprint_box(px, py, cxx, cxy, cyy, opacity, r, g, b,
+                  log_opacity: bool = False):
     """Plain mirror of csrc/footprint.cuh's footprint_box: a conservative
     inclusive pixel box (x0, x1, y0, y1) (int64 tensors) of the pair's
     alpha gate set {power <= 0, min(0.99, op exp(power)) >= f32(1/255)},
-    from f32 record rows, computed in float64.
+    from f32 record rows, computed in float64. log_opacity: `opacity` is
+    K5's log-opacity lop and the gate is min(0.99, exp(power + lop)) >=
+    f32(1/255).
 
-    tau = ln(op / f32(1/255)) + 1e-5, divided by (1 - 16 u kappa) (u =
-    2^-24, kappa = (sqrt(cxx cyy) + |cxy|) / (sqrt(cxx cyy) - |cxy|) bounds
-    the f32 power's rounding relative to Q = -power); the half extents are
-    sqrt(2 tau cyy / det) and sqrt(2 tau cxx / det), padded by a pixel.
-    op < f32(1/255) gives an empty box (x0 > x1); a non-finite field,
-    cxx <= 0, det <= 0, 16 u kappa > 1/4 or a centre or extent past 2^22
-    gives no box (every pixel evaluates the pair).
+    tau = ln(op / f32(1/255)) + 1e-5 (lop - ln f32(1/255) + 1e-5), divided
+    by (1 - 16 u kappa) (u = 2^-24, kappa = (sqrt(cxx cyy) + |cxy|) /
+    (sqrt(cxx cyy) - |cxy|) bounds the f32 power's rounding relative to
+    Q = -power); the half extents are sqrt(2 tau cyy / det) and
+    sqrt(2 tau cxx / det), padded by a pixel. op < f32(1/255) (lop below
+    ln f32(1/255) by more than 1e-5) gives an empty box (x0 > x1); a
+    non-finite field, cxx <= 0, det <= 0, 16 u kappa > 1/4 or a centre or
+    extent past 2^22 gives no box (every pixel evaluates the pair).
     """
     rows = [px, py, cxx, cxy, cyy, opacity, r, g, b]
     finite = torch.stack([torch.isfinite(t) for t in rows]).all(dim=0)
@@ -414,14 +419,20 @@ def footprint_box(px, py, cxx, cxy, cyy, opacity, r, g, b):
     s = torch.sqrt(torch.clamp(dxx * dyy, min=0.0))
     kappa = (s + dxy.abs()) / (s - dxy.abs())
     rel = 16.0 * 2.0 ** -24 * kappa
-    tau = (torch.log(op / a_min) + 1e-5) / (1.0 - rel)
+    if log_opacity:
+        tau0 = op - math.log(a_min) + 1e-5
+        below = tau0 < 0.0
+    else:
+        tau0 = torch.log(op / a_min) + 1e-5
+        below = op < a_min
+    tau = tau0 / (1.0 - rel)
     rx = torch.sqrt(2.0 * tau * dyy / det)
     ry = torch.sqrt(2.0 * tau * dxx / det)
     lim = 2.0 ** 22
-    boxed = (finite & (op >= a_min) & (dxx > 0) & (det > 0) & (rel <= 0.25)
+    boxed = (finite & ~below & (dxx > 0) & (det > 0) & (rel <= 0.25)
              & (x.abs() <= lim) & (y.abs() <= lim) & (rx <= lim)
              & (ry <= lim))
-    empty = finite & (op < a_min)
+    empty = finite & below
     out = []
     for lo, hi in ((x - rx, x + rx), (y - ry, y + ry)):
         lo = torch.floor(torch.where(boxed, lo, 0.0)).to(torch.int64) - 1

@@ -1,17 +1,21 @@
-"""The footprint box of K1 and K2 (csrc/footprint.cuh) through its plain
-mirror `rasterize_tiled.footprint_box`.
+"""The footprint box of K1, K2 and K5 (csrc/footprint.cuh) through its
+plain mirror `rasterize_tiled.footprint_box`.
 
 1. The box is conservative: every pixel whose alpha gate passes, evaluated
    in `rasterize_forward_plain`'s op order in float32, lies inside it, for
    thin, rotated and near-degenerate conics, opacities at and just above
    f32(1/255) and centres on patch borders; degenerate or non-finite
-   records give "no box" and op < 1/255 an empty box.
+   records give "no box" and op < 1/255 an empty box. The same for K5's
+   log-opacity box against the packed gate (power + log op) on bf16
+   conics and log-opacities at and next to ln f32(1/255).
 2. Skipping, per warp patch, the pairs whose box misses the patch (the
    kernels' culling, emulated here on the plain versions by forcing the
-   gate off there) leaves `rasterize_forward_plain`'s and
-   `rasterize_backward_plain`'s outputs unchanged bit for bit.
+   gate off there) leaves `rasterize_forward_plain`'s (K1 and packed K5
+   records) and `rasterize_backward_plain`'s outputs unchanged bit for bit.
 Inputs come from numpy seeds; everything runs on the CPU.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -51,14 +55,40 @@ def _opacities(rng, n):
     return op
 
 
-def _gate(px, py, cxx, cxy, cyy, op, gx, gy):
-    """The plain version's alpha gate at integer pixels (gx, gy), f32."""
+def _gate(px, py, cxx, cxy, cyy, op, gx, gy, log_opacity=False):
+    """The plain version's alpha gate at integer pixels (gx, gy), f32;
+    log_opacity: the packed records' gate, op a log-opacity."""
     dx = px[:, None] - gx
     dy = py[:, None] - gy
     cxx, cxy, cyy, op = (t[:, None] for t in (cxx, cxy, cyy, op))
     power = -0.5 * (cxx * dx * dx + cyy * dy * dy) - cxy * dx * dy
-    alpha = torch.clamp(op * torch.exp(power), max=ALPHA_MAX)
+    if log_opacity:
+        alpha = torch.clamp(torch.exp(power + op), max=ALPHA_MAX)
+    else:
+        alpha = torch.clamp(op * torch.exp(power), max=ALPHA_MAX)
     return (power <= 0.0) & (alpha >= ALPHA_MIN)
+
+
+def _bf16(*rows):
+    """An even number of f32 rows rounded to bf16 through the pipeline's
+    own words (pack2_bf16, two rows a word), back as f32 tensors."""
+    out = []
+    for hi, lo in zip(rows[::2], rows[1::2]):
+        out += rt.unpack2_bf16(rt.pack2_bf16(torch.as_tensor(hi),
+                                             torch.as_tensor(lo)))
+    return out
+
+
+def _lop_near_gate():
+    """bf16 log-opacities (f32) below, at (nearest) and above ln f32(1/255):
+    the nearest bf16 word and its two neighbours."""
+    at = int(rt.pack2_bf16(torch.tensor([math.log(A_MIN)]),
+                           torch.zeros(1))[0]) >> 16 & 0xFFFF
+    # negative values: a larger magnitude word is the smaller value
+    words = np.array([(at + 1) << 16, at << 16, (at - 1) << 16], np.uint32)
+    below, at_, above = words.view(np.float32)
+    assert below < math.log(A_MIN) - 1e-5 < math.log(A_MIN) < at_ < above
+    return below, at_, above
 
 
 @pytest.mark.parametrize("family", ["round", "thin", "degenerate"])
@@ -140,6 +170,101 @@ def test_footprint_box_special_records():
             assert box[1] - box[0] <= 4 and box[3] - box[2] <= 4, i
 
 
+@pytest.mark.parametrize("family", ["round", "thin", "degenerate"])
+def test_log_footprint_box_is_conservative(family):
+    """K5's box: bf16 conics and log-opacities (through pack2_bf16), the
+    packed gate min(0.99, exp(power + lop)) >= f32(1/255)."""
+    rng = np.random.default_rng({"round": 10, "thin": 11,
+                                 "degenerate": 12}[family])
+    n = 270
+    cxx, cxy, cyy = _conics(rng, n, family)
+    lop = np.log(_opacities(rng, n)).astype(np.float32)
+    below, at, above = _lop_near_gate()
+    lop[3::9], lop[4::9], lop[5::9] = below, at, above
+    px = rng.uniform(-50, 50, n).astype(np.float32)
+    py = rng.uniform(-50, 50, n).astype(np.float32)
+    px[::4] = np.round(px[::4] / 4) * 4
+    py[::4] = np.round(py[::4] / 8) * 8
+    px[1::4] = np.round(px[1::4]) + 0.5
+    py[2::4] = np.round(py[2::4])
+    cxx, cxy, cyy, lop = _bf16(cxx, cxy, cyy, lop)
+    t = [torch.from_numpy(px), torch.from_numpy(py), cxx, cxy, cyy, lop]
+    rgb = [torch.full((n,), 0.5)] * 3
+    x0, x1, y0, y1 = rt.footprint_box(*t, *rgb, log_opacity=True)
+    empty = torch.zeros(n, dtype=torch.bool)
+    empty[3::9] = True  # lop below ln f32(1/255) by more than the margin
+    assert torch.equal((x0 > x1) & (y0 > y1), empty)
+    # unboxed exactly where bf16 rounding left det <= 0 (thin, degenerate)
+    det = cxx.double() * cyy.double() - cxy.double() ** 2
+    unboxed = x1 - x0 >= 2 * rt.FOOT_NONE - 1
+    assert torch.equal(unboxed, (det <= 0) & ~empty)
+    assert int(unboxed.sum()) < n // 2
+
+    win = torch.arange(-48, 49, dtype=torch.float32)
+    cx = torch.round(t[0])[:, None]
+    cy = torch.round(t[1])[:, None]
+    gx = (cx + win).repeat_interleave(len(win), dim=1)
+    gy = (cy + win).repeat(1, len(win))
+    passed = _gate(*t, gx, gy, log_opacity=True)
+    inside = ((gx >= x0[:, None]) & (gx <= x1[:, None])
+              & (gy >= y0[:, None]) & (gy <= y1[:, None]))
+    assert int(passed.sum()) > n
+    assert int(passed[4::9].sum()) > 0  # the bf16 at the gate passes
+    assert not bool((passed & ~inside).any())
+    # bf16 can leave a thin conic's det tiny: its box (and gate set) may
+    # reach past the window, where it is not checked
+    sized = ~unboxed & ~empty
+    in_win = (x1 - x0 < 96) & (y1 - y0 < 96)
+    assert float(in_win[sized].float().mean()) > 0.8
+
+    # tight: the exact ellipse's extent, the pads and the rounding margin
+    c64 = [v.numpy().astype(np.float64) for v in (cxx, cxy, cyy, lop)]
+    det = c64[0] * c64[2] - c64[1] ** 2
+    tau = np.maximum(c64[3] - math.log(A_MIN), 0.0)
+    keep = sized.numpy()
+    rx = np.sqrt(2 * tau[keep] * c64[2][keep] / det[keep])
+    ry = np.sqrt(2 * tau[keep] * c64[0][keep] / det[keep])
+    assert bool(((x1 - x0).numpy()[keep] <= 2.2 * rx + 4).all())
+    assert bool(((y1 - y0).numpy()[keep] <= 2.2 * ry + 4).all())
+
+
+def test_log_footprint_box_special_records():
+    f = np.float32
+    nan, inf = f(np.nan), f(np.inf)
+    below, at, above = _lop_near_gate()
+    recs = [
+        # px, py, cxx, cxy, cyy, lop, r   -> expected
+        ((5.0, 3.0, 0.5, 0.0, 0.5, nan, 0.5), "none"),
+        ((5.0, 3.0, 0.5, 0.0, 0.5, inf, 0.5), "none"),  # exp(inf) -> 0.99
+        ((5.0, 3.0, 0.5, 0.0, 0.5, -inf, 0.5), "none"),
+        ((5.0, 3.0, nan, 0.0, 0.5, -0.5, 0.5), "none"),
+        ((5.0, 3.0, 0.5, 0.0, 0.5, -0.5, nan), "none"),  # color
+        ((5.0, 3.0, -0.5, 0.0, 0.5, -0.5, 0.5), "none"),  # cxx <= 0
+        ((5.0, 3.0, 0.5, 0.5, 0.5, -0.5, 0.5), "none"),  # det = 0
+        ((5e6, 3.0, 0.5, 0.0, 0.5, -0.5, 0.5), "none"),  # centre past 2^22
+        ((5.0, 3.0, 0.5, 0.0, 0.5, below, 0.5), "empty"),
+        ((5.0, 3.0, -1.0, 0.0, 0.5, below, 0.5), "empty"),
+        # log(1e-38): the port's zero-opacity lanes
+        ((5.0, 3.0, 0.5, 0.0, 0.5, -87.5, 0.5), "empty"),
+        ((5.0, 3.0, 0.5, 0.0, 0.5, at, 0.5), "box"),
+        ((5.0, 3.0, 0.5, 0.0, 0.5, above, 0.5), "box"),
+    ]
+    cols = np.array([r for r, _ in recs], np.float32).T
+    t = [torch.from_numpy(np.ascontiguousarray(c)) for c in cols]
+    x0, x1, y0, y1 = rt.footprint_box(*t[:6], t[6], t[6], t[6],
+                                      log_opacity=True)
+    big = rt.FOOT_NONE
+    for i, (_, want) in enumerate(recs):
+        box = (int(x0[i]), int(x1[i]), int(y0[i]), int(y1[i]))
+        if want == "none":
+            assert box == (-big, big, -big, big), i
+        elif want == "empty":
+            assert box[0] > box[1] and box[2] > box[3], i
+        else:  # lop just past the gate: the centre passes, the box is small
+            assert box[0] <= 5 <= box[1] and box[2] <= 3 <= box[3], i
+            assert box[1] - box[0] <= 6 and box[3] - box[2] <= 6, i
+
+
 # ------------------------------------------------- the per-patch skip
 def _tile_pairs(seed):
     """(16, A + 128 + 37) pair records of 2 x 2 tiles: runs of 150, 1100
@@ -207,16 +332,39 @@ def _tile_pairs(seed):
     return torch.from_numpy(pair), tile_start, tile_count, tiles_x, tiles_y
 
 
-def _keep_mask(pair, tile_start, tile_count, tiles_x):
+def _packed_tile_pairs(seed):
+    """`_tile_pairs`' records as K5's (8, pstride) packed words (px, py f32;
+    cxx|cxy, cyy|log op, r|g, b|0 bf16 pairs through pack2_bf16), every
+    11th pair's log-opacity at, below and above ln f32(1/255) in bf16."""
+    pair, ts, tc, tiles_x, tiles_y = _tile_pairs(seed)
+    lop = torch.log(pair[rt.ROW_OPAC])  # -inf outside the runs
+    below, at, above = _lop_near_gate()
+    lop[4::11], lop[6::11], lop[8::11] = float(below), float(at), float(above)
+    zero = torch.zeros_like(lop)
+    packed = torch.zeros((rt.P_N_ROWS, pair.shape[1]), dtype=torch.float32)
+    packed[rt.P_ROW_PX] = pair[rt.ROW_PX]
+    packed[rt.P_ROW_PY] = pair[rt.ROW_PY]
+    for row, (hi, lo) in ((rt.P_ROW_CXX_CXY, (pair[rt.ROW_CXX],
+                                              pair[rt.ROW_CXY])),
+                          (rt.P_ROW_CYY_OPAC, (pair[rt.ROW_CYY], lop)),
+                          (rt.P_ROW_R_G, (pair[rt.ROW_R], pair[rt.ROW_G])),
+                          (rt.P_ROW_B, (pair[rt.ROW_B], zero))):
+        packed[row] = rt.pack2_bf16(hi, lo).view(torch.float32)
+    return packed, ts, tc, tiles_x, tiles_y
+
+
+def _keep_mask(pair, tile_start, tile_count, tiles_x, packed=False):
     """(pstride, TILE_PIX) bool: pixel lane of the pair's tile lies in a
-    warp patch that the pair's box meets (True outside every run)."""
+    warp patch that the pair's box meets (True outside every run); packed:
+    K5's records and its log-opacity box."""
     pstride = pair.shape[1]
     keep = torch.ones((pstride, rt.TILE_PIX), dtype=torch.bool)
     lane = torch.arange(rt.TILE_PIX)
     lx, ly = lane % rt.TILE_W, lane // rt.TILE_W
     qx0 = lx // rt.PATCH_W * rt.PATCH_W
     qy0 = ly // rt.PATCH_H * rt.PATCH_H
-    x0, x1, y0, y1 = rt.footprint_box(*pair[:9])
+    rows = rt._decode_packed(pair) if packed else pair[:9]
+    x0, x1, y0, y1 = rt.footprint_box(*rows, log_opacity=packed)
     for t in range(tile_start.numel()):
         s, n = int(tile_start[t]), int(tile_count[t])
         if n == 0:
@@ -281,6 +429,35 @@ def test_patch_skip_keeps_forward_plain(with_stats, monkeypatch):
     assert int(want[5][1]) < n_chunks  # tile 1 saturated mid-run
     assert float(want[1].min()) < 1e-4
     for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_patch_skip_keeps_packed_forward_plain(seed, monkeypatch):
+    """K5's per-patch skip with the log-opacity box, on packed adversarial
+    records: the plain packed compositing is unchanged bit for bit."""
+    pair, ts, tc, tiles_x, tiles_y = _packed_tile_pairs(seed)
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    args = (pair, ts, tc, bg, tiles_x, tiles_y, False)
+    want = rt.rasterize_forward_plain(*args, packed=True)
+    keep = _keep_mask(pair, ts, tc, tiles_x, packed=True)
+    in_run = torch.zeros(pair.shape[1], dtype=torch.bool)
+    for s, n in zip(ts.tolist(), tc.tolist()):
+        in_run[s:s + n] = True
+    assert float((~keep[in_run]).float().mean()) > 0.5  # most work skipped
+    skip = _SkipTorch(keep)
+    monkeypatch.setattr(rt, "torch", skip)
+    got = rt.rasterize_forward_plain(*args, packed=True)
+    monkeypatch.undo()
+    assert skip.hits > 0
+    n_chunks = (int(ts[1]) % 128 + 1100 + 127) // 128
+    assert int(want[5][1]) < n_chunks  # tile 1 saturated mid-run
+    assert float(want[1].min()) < 1e-4
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    # the wrapper's plain version is the same compositing
+    plain = rt.rasterize_forward_packed_plain(*args[:6])
+    for a, b in zip(plain, want[:2]):
         assert torch.equal(_bits(a), _bits(b))
 
 

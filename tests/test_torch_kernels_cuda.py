@@ -5,8 +5,9 @@ CPU-only host). Run them on the GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 
-K4, K3, K3p and K6 are copies and must be bit-exact; K1 (and K5) composites sequentially per
-pixel where the plain version takes a cumprod per chunk: products round
+K4, K3, K3p and K6 are copies and must be bit-exact (K6 also at the edges
+of its contract and over back-to-back calls); K1 (and K5) composites
+sequentially per pixel where the plain version takes a cumprod per chunk: products round
 differently, so a pair may cross the alpha >= 1/255 or T >= 1e-4 gate in
 one and not the other (<= ~4e-3 on a pixel); colors and transmittance agree
 to 5e-3 at most and 1e-6 on average, argmax ids and pair weights up to
@@ -296,22 +297,26 @@ def test_stream_compact_kernel_exact(cuda, density, k_frac):
 
 
 # --------------------------------------- K1 / K2 footprint culling, staging
-def _adversarial(cuda, seed, pstride_mult4=False, misalign=False):
+def _adversarial(cuda, seed, pstride_mult4=False, misalign=False,
+                 packed=False):
     """tests/test_torch_footprint.py's 2 x 2 tiles on the card: boxes
     ending on patch borders, op = f32(1/255) and just below, thin,
     degenerate and NaN conics, tile-wide splats, a run of 10 chunks that
     saturates mid-chunk. Its pstride is not a multiple of 4 (4-byte
     copies); pstride_mult4 pads it to one (16-byte copies), misalign
-    places the array 4 bytes past a 16-byte boundary (4-byte copies)."""
-    from test_torch_footprint import _tile_pairs
+    places the array 4 bytes past a 16-byte boundary (4-byte copies).
+    packed: the same records as K5's (8, pstride) bf16 words, log-opacities
+    at and next to ln f32(1/255)."""
+    from test_torch_footprint import _packed_tile_pairs, _tile_pairs
 
-    pair, ts, tc, tiles_x, tiles_y = _tile_pairs(seed)
-    ps = pair.shape[1]
+    pair, ts, tc, tiles_x, tiles_y = (_packed_tile_pairs if packed
+                                      else _tile_pairs)(seed)
+    rows, ps = pair.shape
     if pstride_mult4:
         ps = (ps + 3) // 4 * 4
-    flat = torch.zeros(16 * ps + 4, device=cuda)
+    flat = torch.zeros(rows * ps + 4, device=cuda)
     off = 1 if misalign else 0
-    data = flat[off:off + 16 * ps].view(16, ps)
+    data = flat[off:off + rows * ps].view(rows, ps)
     data[:, :pair.shape[1]] = pair.to(cuda)
     assert (data.data_ptr() % 16 == 0) != misalign
     return (data, ts.to(cuda), tc.to(cuda),
@@ -374,3 +379,108 @@ def test_rasterize_backward_adversarial(cuda, seed):
         other = rt.rasterize_backward(a2[0], a2[1], a2[2], fwd[5], fwd[1],
                                       dcolor, dalpha, a2[3], a2[4], a2[5])
         assert torch.equal(_bits(got), _bits(other[:, :n])), variant
+
+
+@pytest.mark.parametrize("seed", [3, 4, 5])
+def test_rasterize_forward_packed_adversarial(cuda, seed):
+    """K5 on packed adversarial records against its plain version (K5's
+    tolerances), and the same bits from the 16-byte and 4-byte copies."""
+    args = _adversarial(cuda, seed, packed=True)
+    before = kernels.LAUNCHES["rasterize_fwd_packed"]
+    got = rt.rasterize_forward_packed(*args)
+    assert kernels.LAUNCHES["rasterize_fwd_packed"] == before + 1
+    want = rt.rasterize_forward_plain(*args, False, packed=True)
+    torch.cuda.synchronize()
+    assert int(want[5][1]) < 10  # tile 1 stopped on saturation
+    for a, b in zip(got, want[:2]):
+        assert (a - b).abs().max() < 5e-3
+        assert (a - b).abs().mean() < 1e-5
+    for variant in ({"pstride_mult4": True}, {"misalign": True},
+                    {"pstride_mult4": True, "misalign": True}):
+        other = rt.rasterize_forward_packed(
+            *_adversarial(cuda, seed, packed=True, **variant))
+        for a, b in zip(got, other):
+            assert torch.equal(_bits(a), _bits(b)), variant
+
+
+def _compact_inputs(cuda, cap, density, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    keep = torch.rand(cap, device=cuda, generator=g) < density
+    px = torch.randn(cap, device=cuda, generator=g) * 500
+    px[::7] = float("nan")
+    cols = {
+        "px": px,
+        "p1": torch.randint(-(1 << 31), 1 << 31, (cap,), device=cuda,
+                            generator=g, dtype=torch.int64).to(torch.int32),
+        "big": torch.arange(cap, device=cuda, dtype=torch.int32) + (1 << 24),
+    }
+    return cols, keep
+
+
+def _same_compaction(got, want):
+    return (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+            and all(torch.equal(_bits(got[0][n]), _bits(want[0][n]))
+                    for n in want[0]))
+
+
+# (cap, k, keep density) at the edges of K6's contract (also replayed
+# against another version of the kernel by torch_ab_k1_k2.py)
+COMPACT_EDGE_CASES = (
+    (5000, 0, 0.5),               # k = 0
+    (3 * 1024 + 5, 3 * 1024 + 5, 0.7),  # k = cap
+    (1, 1, 1.0), (1, 1, 0.0),     # cap = 1
+    (70001, 10000, 0.9),          # more kept rows than k
+    (1024 * 40 + 1000, 2048, 0.01),  # fewer, cap not a multiple of 1024
+    (9_000_017, 3_000_000, 0.3),  # more than 32 tiles per block
+)
+
+
+@pytest.mark.parametrize("cap,k,density", COMPACT_EDGE_CASES)
+def test_stream_compact_kernel_edges(cuda, cap, k, density):
+    """K6's one cooperative launch at the edges of its contract, bit-exact
+    against its plain version."""
+    from log_tpu_torch.ops.compact import (stream_compact_cols,
+                                           stream_compact_cols_plain)
+
+    cols, keep = _compact_inputs(cuda, cap, density, cap % 1000)
+    before = kernels.LAUNCHES["stream_compact"]
+    got = stream_compact_cols(cols, keep, k)
+    assert kernels.LAUNCHES["stream_compact"] == before + 1
+    want = stream_compact_cols_plain(cols, keep, k)
+    assert _same_compaction(got, want)
+    assert int(got[2].sum()) == min(k, int(keep.sum()))
+
+
+def test_stream_compact_kernel_sixteen_columns(cuda):
+    """More than 8 columns take the kernel's 16-column instantiation."""
+    from log_tpu_torch.ops.compact import (stream_compact_cols,
+                                           stream_compact_cols_plain)
+
+    cols, keep = _compact_inputs(cuda, 50_001, 0.4, 7)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for i in range(13):
+        cols[f"x{i}"] = torch.randn(keep.shape[0], device=cuda, generator=g)
+    assert len(cols) == 16
+    got = stream_compact_cols(cols, keep, 30_000)
+    assert _same_compaction(got, stream_compact_cols_plain(cols, keep, 30_000))
+
+
+def test_stream_compact_kernel_back_to_back(cuda):
+    """50 calls on one stream with a different mask (and k) each, launched
+    back to back and only then compared: every one bit-exact against its
+    plain version, so no state carries over from one call to the next."""
+    from log_tpu_torch.ops.compact import (stream_compact_cols,
+                                           stream_compact_cols_plain)
+
+    cap = 3 * 8192 * 17 + 77
+    cols, _ = _compact_inputs(cuda, cap, 0.5, 0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    runs = []
+    for i in range(50):
+        density = (i % 10) / 9.0
+        keep = torch.rand(cap, device=cuda, generator=g) < density
+        k = [cap, cap // 2, 128, 0][i % 4]
+        runs.append((keep, k, stream_compact_cols(cols, keep, k)))
+    torch.cuda.synchronize()
+    for keep, k, got in runs:
+        assert _same_compaction(got, stream_compact_cols_plain(cols, keep, k))
