@@ -59,7 +59,27 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    plain version (same loss, same per-gaussian gradients, read from the
    first Adam moments); every parameter and moment finite after each step;
    the loss of the last 4 steps below that of the first 4; the counters
-   filled on the kept rows.
+   filled on the kept rows;
+9. growth: the trained tree, with current_depth 20 (what upgrade_tree
+   sets) and min_steps_split 0, densified once by update_depth_stage on the
+   device path (timed, with the peak memory), held against the host path
+   run on a second model loaded from the same snapshot (tree arrays equal,
+   params, moments and counters to 1e-5 / 1e-6); then 4 more steps (K2
+   once per step, K1 at least twice, the state finite), step 0's kernel
+   calls held against the plain versions;
+10. two stages: the scene's 600k roots written as a PLY (write_ply) and
+   loaded through GaussianPoint(init_ply=...) (init_opacity 0.1), the init
+   pass over the 4 views at scale 4, then stages init (4 x 20 steps at
+   480x272) and tree (6 x 20 at 960x544) of config/synthetic/train.yml,
+   each step followed by update_by_iteration, GT from the unperturbed tree;
+   the schedule must fire exactly EXPECTED_EVENTS, every step must launch
+   K4, K3, K1 and K2 and stay finite, the tree stage's loss must fall; the
+   first init densify (device path) is held against the host path on the
+   same snapshot and rand_u; the first step after each densify has its
+   kernel calls held against the plain versions;
+11. grown frame: one generic 1920x1088 frame of the grown model, held
+   against its all-plain rerun, its kernel calls against the plain
+   versions, and the device caches at the new capacity.
 With --profile, 4 more frames of the generic, flat_slice and block phases
 and 4 more training steps run under torch.profiler, each after its timed
 run; the device time by kernel goes to build/{generic,flat_slice,block,
@@ -183,6 +203,21 @@ BLOCK_KERNELS = ("pack_rows", "expand_packed", "rasterize_fwd_packed")
 CROSS_PATH_PSNR = 35.0
 CHECK_RENDER_EVERY = 4
 PROFILE = "--profile" in sys.argv[1:]
+# growth phases: steps after the 3.24M-point densify; the two stages of
+# config/synthetic/train.yml (name, iterations in units of base_iter,
+# model_state, dataset scale) and the schedule events they must fire
+GROWTH_STEPS = 4
+STAGES = (("init", 4, {}, 4), ("tree", 6, {"enable_sh": True}, 2))
+EXPECTED_EVENTS = {
+    "init": ((19, "reset"), (39, "init_densify"), (59, "init_densify")),
+    "tree": ((19, "reset"), (39, "upgrade_tree"), (59, "reset"),
+             (79, "depth_densify"), (99, "reset")),
+}
+STEP_KERNELS = ("pack_rows", "expand_with_keys", "rasterize_fwd",
+                "rasterize_bwd")
+PLY_PATH = "build/chip_smoke_roots.ply"
+# host path against device path after one densify (tests/test_densify_device.py)
+DENSIFY_RTOL, DENSIFY_ATOL = 1e-5, 1e-6
 
 
 def make_cam(theta, height=18.0, radius=22.0, h=H, w=W, focal=1400.0):
@@ -904,10 +939,9 @@ def train_batches(h=H, w=W, focal=1400.0):
     return batches
 
 
-def make_ground_truth(model, batches, device, log):
-    """8-bit GT frames of the unperturbed tree (render_fused), put into the
-    batches as data["image"] (B, H, W, 3); then the colors and opacities of
-    the live points are perturbed from a seeded generator."""
+def render_ground_truth(model, batches, log):
+    """8-bit GT frames of the model (render_fused, black background), put
+    into the batches as data["image"] (B, H, W, 3)."""
     import torch
 
     model.eval()
@@ -916,10 +950,19 @@ def make_ground_truth(model, batches, device, log):
         out = model.render_fused(camera, np.zeros(3, np.float32))
         img8 = (torch.clamp(out["render"], 0, 1) * 255).to(torch.uint8)
         b["image"] = img8.permute(1, 2, 0).cpu().numpy()[None]
-        log(f"GT view {int(b['index'][0])}: alpha mean "
-            f"{float(out['alpha'].mean()):.4f}, pixel mean "
+        log(f"GT view {int(b['index'][0])} {img8.shape[2]}x{img8.shape[1]}: "
+            f"alpha mean {float(out['alpha'].mean()):.4f}, pixel mean "
             f"{float(img8.float().mean()) / 255:.4f}")
     model.train()
+
+
+def make_ground_truth(model, batches, device, log):
+    """GT frames of the unperturbed tree (render_ground_truth); then the
+    colors and opacities of the live points are perturbed from a seeded
+    generator."""
+    import torch
+
+    render_ground_truth(model, batches, log)
     n = model.num_points
     g = torch.Generator(device=device).manual_seed(SEED + 1)
     for key, scale, shift in (("colors", 0.3, 0.0), ("opacity", 0.5, -0.5)):
@@ -950,6 +993,7 @@ def run_train_slice(model, batches, device, log):
     renderer = NaiveRendererAndLoss(split="train", use_randback=True,
                                     device=device)
     trainer = Trainer({}, model, renderer, seed=SEED)
+    trainer.set_gt_cache(True)  # full frames: the views' GT stays cached
     step0 = {"calls": {}, "step": []}
     real_step = lg.fused_train_step
 
@@ -1162,6 +1206,486 @@ def profile_frames(label, model, renderer, batches, frame_ms, log):
                    PROFILE_STEPS, float(np.median(frame_ms)), log)
 
 
+# ------------------------------------------------------------------ growth
+def hold_calls(calls, label, log):
+    """K4 and K3 (bit-exact), K1 (each with_stats mode recorded) and K2
+    (where the call ran one) on the recorded inputs of one main-path step
+    or frame, against their plain versions. Returns ({kernel: max_abs_err},
+    failures)."""
+    import torch
+
+    from log_tpu_torch.ops import rasterize_tiled as rt
+    from log_tpu_torch.ops.expand import (expand_with_keys,
+                                          expand_with_keys_plain)
+
+    errs, fails = {}, []
+    with torch.no_grad():
+        args, kw = calls["pack_rows"][-1]
+        k, p = rt.pack_rows(*args, **kw), rt.pack_rows_plain(*args, **kw)
+        errs["pack_rows"] = float((k - p).abs().max())
+        if not torch.equal(_bits(k), _bits(p)):
+            fails.append(f"{label}: K4 pack_rows is not bit-exact")
+        args, kw = calls["expand_with_keys"][-1]
+        k = expand_with_keys(*args, **kw)
+        p = expand_with_keys_plain(*args, **kw)
+        errs["expand_with_keys"] = max(
+            float((a.double() - b.double()).abs().max()) for a, b in zip(k, p))
+        if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(k, p)):
+            fails.append(f"{label}: K3 expand_with_keys is not bit-exact")
+    modes = [check_k1(label, mode, a, log, fails)
+             for mode, a in k1_calls_by_mode(calls).items()]
+    errs["rasterize_fwd"] = max(m["max_abs_err"] for m in modes)
+    if "rasterize_bwd" in calls:
+        row, f = compare_k2(calls, log)
+        errs["rasterize_bwd"] = row["max_abs_err"]
+        fails += f
+    log(f"{label}: K4/K3 exact, max |kernel - plain| {errs}")
+    return errs, fails
+
+
+def compare_models(ref, got, label, log):
+    """The host path's model (ref) against the device path's (got) after
+    the same densify: num_points, capacity and the tree arrays equal,
+    params, moments and counters to DENSIFY_RTOL / DENSIFY_ATOL (integer
+    counters equal). Returns (worst excess per group, failures)."""
+    import torch
+
+    fails = []
+    if (ref.num_points, ref.capacity) != (got.num_points, got.capacity):
+        return {}, [f"{label}: points/capacity {ref.num_points}/"
+                    f"{ref.capacity} (host) vs {got.num_points}/"
+                    f"{got.capacity} (device)"]
+    for key in ("root_index", "tree") + ref.tree.KEYS:
+        if not np.array_equal(getattr(ref.tree, key), getattr(got.tree, key)):
+            fails.append(f"{label}: tree.{key} differs")
+    n = ref.num_points
+    pairs = {f"params.{k}": (ref.gaussian.get(k), got.gaussian.get(k))
+             for k in ref.gaussian.keys}
+    for mk in ("exp_avg", "exp_avg_sq"):
+        for k, v in ref.optimizer.moments[mk].items():
+            pairs[f"{mk}.{k}"] = (v, got.optimizer.moments[mk][k])
+    for k, v in ref.counter.data.items():
+        pairs[f"counter.{k}"] = (v, got.counter.data[k])
+    worst = {}
+    for name, (a, b) in pairs.items():
+        a, b = a[:n], b[:n]
+        if a.is_floating_point():
+            excess = float(((a - b).abs() - DENSIFY_ATOL
+                            - DENSIFY_RTOL * a.abs()).max())
+            ok = excess <= 0
+        else:
+            excess = float((a.long() - b.long()).abs().max())
+            ok = excess == 0
+        group = name.split(".")[0]
+        worst[group] = max(worst.get(group, -math.inf), excess)
+        if not ok:
+            fails.append(f"{label}: {name} differs (excess {excess:.3g})")
+    log(f"{label}: host vs device path: {n} points, capacity {ref.capacity}, "
+        f"tree arrays equal={not any('tree.' in f for f in fails)}; worst "
+        f"|host - device| - tolerance by group {worst} (<= 0 holds)")
+    return worst, fails
+
+
+def snapshot_of(model) -> dict:
+    """A copy of the model's state_dict (it hands out the host tree's own
+    arrays, which a densify then changes in place)."""
+    return {k: np.array(v) for k, v in model.state_dict().items()}
+
+
+def host_twin(snapshot, model, device):
+    """A second model on the card loaded from `snapshot` (model's
+    state_dict) that densifies on the host path."""
+    from log_tpu_torch.utils.config import load_object
+
+    twin = load_object("LoG.model.level_of_gaussian.LoG", MODEL_ARGS,
+                       device=device)
+    twin.base_iter = model.base_iter
+    twin.view_correction.init(model.view_correction.values.shape[0])
+    twin.load_state_dict(snapshot, split="train")
+    twin.set_stage(model.stage_name)
+    twin.set_state(current_depth=model.current_depth)
+    twin.densify_and_remove = dict(model.densify_and_remove,
+                                   device_densify="off")
+    return twin
+
+
+def timed(fn):
+    """(result, seconds) of fn between two synchronizes."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def hold_densify(model, snapshot, densify, label, device, log):
+    """The host path on a twin loaded from `snapshot` (the state before
+    the device path's densify), run by densify(twin), held against the
+    model. Returns (json, failures)."""
+    import torch
+
+    twin = host_twin(snapshot, model, device)
+    _, host_s = timed(lambda: densify(twin))
+    worst, fails = compare_models(twin, model, label, log)
+    del twin
+    torch.cuda.empty_cache()
+    return {"host_s": host_s, "worst_excess": worst}, fails
+
+
+class ScheduleLog:
+    """Wraps a model's schedule actions (update_init_stage,
+    update_depth_stage, upgrade_tree, counter.reset) to record each one
+    that update_by_iteration runs at the top level: (stage, iteration,
+    action), the path of a densify, its wall time between synchronizes,
+    and the points and capacity after it. `inject` holds the rand_u of the
+    next init densify."""
+
+    def __init__(self, model, log):
+        self.model, self.log = model, log
+        self.events, self.where, self.inject, self._depth = [], None, None, 0
+        for attr, action in (("update_init_stage", "init_densify"),
+                             ("update_depth_stage", "depth_densify"),
+                             ("upgrade_tree", "upgrade_tree")):
+            setattr(model, attr, self._wrap(action, getattr(model, attr)))
+        model.counter.reset = self._wrap("reset", model.counter.reset)
+
+    def _wrap(self, action, real):
+        def call(*args, **kwargs):
+            if self.where is None or self._depth:
+                return real(*args, **kwargs)
+            m = self.model
+            event = {"stage": self.where[0], "iteration": self.where[1],
+                     "action": action, "points_before": m.num_points,
+                     "capacity_before": m.capacity}
+            if action.endswith("densify"):
+                event["path"] = "device" if m._use_device_densify() else "host"
+            if action == "init_densify" and self.inject is not None:
+                kwargs["rand_u"], self.inject = self.inject, None
+            self._depth += 1
+            try:
+                out, event["s"] = timed(lambda: real(*args, **kwargs))
+            finally:
+                self._depth -= 1
+            event.update(points=m.num_points, capacity=m.capacity)
+            self.events.append(event)
+            self.log(f"  {event['stage']} iteration {event['iteration']}: "
+                     f"{action}{' (' + event['path'] + ' path)' if 'path' in event else ''}"
+                     f" {event['points_before']} -> {m.num_points} points, "
+                     f"capacity {event['capacity_before']} -> {m.capacity}, "
+                     f"{event['s']:.3f} s")
+            return out
+        return call
+
+
+def growth_phase(model, trainer, batches, step_ms, device, log):
+    """Phase 1: one depth densify of the trained 3.24M-point tree on the
+    device path, held against the host path on the same snapshot, then
+    GROWTH_STEPS more training steps. Returns (json, launches, held kernel
+    errors, failures)."""
+    import torch
+
+    from log_tpu_torch.ops import kernels
+
+    failures = []
+    d = model.densify_and_remove
+    model.set_state(current_depth=20)  # what upgrade_tree sets
+    d["min_steps_split"] = 0  # the rows have at most a few dozen steps
+    d["device_densify"] = "on"
+    log(f"growth: current_depth {model.current_depth}, min_steps_split "
+        f"{d['min_steps_split']}, {model.num_points} points, capacity "
+        f"{model.capacity}, {model.tree.num_nodes} tree nodes")
+    snapshot = snapshot_of(model)
+    n0, c0, nodes0 = model.num_points, model.capacity, model.tree.num_nodes
+    torch.cuda.synchronize()
+    before_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, dev_s = timed(lambda: model.update_depth_stage(trainer.global_iterations))
+    peak = torch.cuda.max_memory_allocated()
+    n_split = model.tree.num_nodes - nodes0
+    n_removed = n0 + n_split * model.splitter.N - model.num_points
+    log(f"growth: device densify split {n_split} parents, removed "
+        f"{n_removed} children, {n0} -> {model.num_points} points, capacity "
+        f"{c0} -> {model.capacity}, {dev_s:.3f} s; memory "
+        f"{before_bytes / 2**30:.3f} GiB before, peak {peak / 2**30:.3f} GiB")
+    if n_split <= 0:
+        failures.append("growth: nothing split")
+    held, f = hold_densify(
+        model, snapshot,
+        lambda twin: twin.update_depth_stage(trainer.global_iterations),
+        "growth depth densify", device, log)
+    failures += f
+    del snapshot
+    log(f"growth: host path {held['host_s']:.3f} s, device path "
+        f"{dev_s:.3f} s")
+
+    calls, steps, finite_fail = {}, [], []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for i in range(GROWTH_STEPS):
+        batch = batches[i % TRAIN_VIEWS]
+        if i == 0:
+            with recording(calls):
+                (_, out, _), ms = timed(
+                    lambda: trainer.training_step(model, batch))
+        else:
+            (_, out, _), ms = timed(lambda: trainer.training_step(model, batch))
+        trainer.global_iterations += 1
+        steps.append({"step": i, "ms": ms * 1e3,
+                      "loss": float(out["metrics"]["loss"]),
+                      "bucket": list(model._bucket)})
+        if not _finite(model.gaussian.params(),
+                       model.optimizer.moments["exp_avg"],
+                       model.optimizer.moments["exp_avg_sq"]):
+            finite_fail.append(i)
+    launches = dict(kernels.LAUNCHES)
+    log("growth: steps after the densify, ms "
+        + " ".join(f"{s['ms']:.1f}" for s in steps) + f" (median before "
+        f"{np.median(step_ms):.1f}); loss "
+        + " ".join(f"{s['loss']:.4f}" for s in steps) + f"; launches "
+        f"{launches}")
+    if finite_fail:
+        failures.append(f"growth: non-finite state after steps {finite_fail}")
+    if launches["rasterize_bwd"] != GROWTH_STEPS:
+        failures.append(f"growth: K2 launched {launches['rasterize_bwd']} "
+                        f"times in {GROWTH_STEPS} steps")
+    if launches["rasterize_fwd"] < 2 * GROWTH_STEPS:
+        failures.append("growth: K1 launched fewer than twice per step")
+    errs, f = hold_calls(calls, "growth step 0", log)
+    failures += f
+    return ({"points_before": n0, "points": model.num_points,
+             "capacity_before": c0, "capacity": model.capacity,
+             "split_parents": n_split, "removed": n_removed,
+             "device_s": dev_s, "memory_before_bytes": before_bytes,
+             "peak_bytes": peak, **held, "steps": steps,
+             "step_ms_before_median": float(np.median(step_ms))},
+            launches, errs, failures)
+
+
+def write_root_cloud(path, log):
+    """The synthetic scene's roots as a PLY (xyz, colors from their SH DC
+    term), with the port's write_ply."""
+    from log_tpu_torch.ops.sh import C0
+    from log_tpu_torch.utils.file import write_ply
+    from log_tpu_torch.utils.synth_tree import build_checkpoint
+
+    ckpt = build_checkpoint(N_ROOTS, seed=SEED)
+    xyz = ckpt["gaussian.xyz"][:N_ROOTS]
+    colors = ckpt["gaussian.colors"][:N_ROOTS] * C0 + 0.5
+    write_ply(path, xyz, colors)
+    log(f"two-stage: wrote {N_ROOTS} roots to {path}")
+
+
+def stage_batches(device, log):
+    """The 4 training views at each stage's dataset scale, with GT from the
+    unperturbed 3.24M-point tree."""
+    import torch
+
+    gt_model = build_model(N_ROOTS, device)
+    out = {}
+    for _, _, _, scale in STAGES:
+        b = train_batches(h=H // scale, w=W // scale, focal=1400.0 / scale)
+        render_ground_truth(gt_model, b, log)
+        out[scale] = b
+    del gt_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_stage_phase(device, log):
+    """Phase 2: stages init and tree of config/synthetic/train.yml on the
+    scene's roots as a point cloud, each step followed by
+    update_by_iteration as the JAX package's Trainer.fit runs it. Returns
+    (json, model, launches, held kernel errors, failures)."""
+    import torch
+
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+    from log_tpu_torch.utils.config import load_object
+    from log_tpu_torch.utils.trainer import Trainer
+
+    failures, held_errs = [], {}
+    batches = stage_batches(device, log)
+    write_root_cloud(PLY_PATH, log)
+    args = dict(MODEL_ARGS, gaussian=dict(
+        MODEL_ARGS["gaussian"],
+        init_ply={"filename": PLY_PATH, "init_opacity": 0.1}))
+    model, setup_s = timed(lambda: load_object(
+        "LoG.model.level_of_gaussian.LoG", args, device=device))
+    model.base_iter = BASE_ITER
+    log(f"two-stage: model from the point cloud, {model.num_points} points, "
+        f"capacity {model.capacity}, {setup_s:.2f} s")
+
+    # the init pass at the init stage's scale
+    init_views = batches[STAGES[0][3]]
+    model.at_init_start()
+    for b in init_views:
+        model.clear()
+        model.init_view({k: np.asarray(v)[0] for k, v in b["camera"].items()})
+    model.at_init_final()
+    r3 = model.counter.data["radius3d_min"][:model.num_points]
+    log(f"two-stage: init pass over {model.num_views} views: radius3d_min "
+        f"< 1 on {float((r3 < 1).float().mean()):.4f} of the points; "
+        f"{model}")
+
+    renderer = NaiveRendererAndLoss(split="train", use_randback=True,
+                                    device=device)
+    trainer = Trainer({}, model, renderer, seed=SEED)
+    sched = ScheduleLog(model, log)
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    steps, missing, finite_fail, held = [], [], [], {}
+    recorded = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    global_it = 0
+    for stage, n_iter, state, scale in STAGES:
+        n_iter *= BASE_ITER
+        trainer.set_gt_cache(True)  # full frames
+        model.set_stage(stage)
+        model.set_state(**state)
+        model.training_setup()
+        views = batches[scale]
+        densified = False
+        for it in range(n_iter):
+            before = dict(kernels.LAUNCHES)
+            record = densified
+            densified = False
+            if record:
+                calls = recorded[f"{stage} iteration {it}"] = {}
+                with recording(calls):
+                    (_, out, _), ms = timed(
+                        lambda: trainer.training_step(model, views[it % 4]))
+            else:
+                (_, out, _), ms = timed(
+                    lambda: trainer.training_step(model, views[it % 4]))
+            trainer.global_iterations += 1
+            steps.append({"stage": stage, "iteration": it, "ms": ms * 1e3,
+                          "loss": float(out["metrics"]["loss"]),
+                          "points": model.num_points})
+            ran = {k: kernels.LAUNCHES[k] - before[k] for k in STEP_KERNELS}
+            if min(ran.values()) < 1:
+                missing.append((stage, it, ran))
+            if not _finite(model.gaussian.params(),
+                           model.optimizer.moments["exp_avg"],
+                           model.optimizer.moments["exp_avg_sq"]):
+                finite_fail.append((stage, it))
+            if it + 1 >= n_iter:
+                continue  # the last iteration skips the update
+            first_init = (stage == "init" and "init" not in held
+                          and model.densify_due(it)
+                          and it + 1 != model.densify_and_remove[
+                              "densify_from_iter"] * model.base_iter)
+            if first_init:
+                snapshot = snapshot_of(model)
+                sched.inject = torch.rand(
+                    (2, model.num_points), generator=g,
+                    device=device).cpu().numpy()
+                rand_u = sched.inject
+            n_events = len(sched.events)
+            sched.where = (stage, it)
+            model.update_by_iteration(it, global_it)
+            sched.where = None
+            densified = any(e["action"].endswith("densify")
+                            for e in sched.events[n_events:])
+            if first_init:
+                held["init"], f = hold_densify(
+                    model, snapshot,
+                    lambda twin: twin.update_init_stage(rand_u=rand_u),
+                    "first init densify", device, log)
+                failures += f
+                del snapshot
+            global_it += 1
+    launches = dict(kernels.LAUNCHES)
+    n_steps = len(steps)
+    events = [(e["stage"], e["iteration"], e["action"]) for e in sched.events]
+    want = [(stage, it, action) for stage, acts in EXPECTED_EVENTS.items()
+            for it, action in acts]
+    log(f"two-stage: {n_steps} steps, events {events}; launches {launches}")
+    if events != want:
+        failures.append(f"two-stage: schedule fired {events}, expected {want}")
+    first = next((e for e in sched.events if e["action"] == "init_densify"),
+                 {})
+    if first.get("path") != "device":
+        failures.append("two-stage: the first init densify did not take the "
+                        "device path")
+    if missing:
+        failures.append(f"two-stage: steps without every kernel: {missing[:4]}")
+    if finite_fail:
+        failures.append(f"two-stage: non-finite state after {finite_fail[:4]}")
+    tree_loss = [s["loss"] for s in steps if s["stage"] == "tree"]
+    loss_first = float(np.mean(tree_loss[:8]))
+    loss_last = float(np.mean(tree_loss[-8:]))
+    log(f"two-stage: tree stage mean loss first 8 steps {loss_first:.5f}, "
+        f"last 8 {loss_last:.5f}; "
+        + "; ".join(f"{st} step ms median "
+                    f"{np.median([s['ms'] for s in steps if s['stage'] == st]):.2f}"
+                    for st, *_ in STAGES))
+    if not loss_last < loss_first:
+        failures.append(f"two-stage: tree loss did not fall: {loss_first} -> "
+                        f"{loss_last}")
+    for label, calls in recorded.items():
+        errs, f = hold_calls(calls, f"two-stage {label}", log)
+        failures += f
+        for k, v in errs.items():
+            held_errs[k] = max(held_errs.get(k, 0.0), v)
+    del recorded
+    del model.update_init_stage, model.update_depth_stage, model.upgrade_tree
+    del model.counter.reset
+    return ({"setup_s": setup_s, "events": sched.events, "steps": steps,
+             "held": held, "tree_loss_first8": loss_first,
+             "tree_loss_last8": loss_last, "launches": launches},
+            model, launches, held_errs, failures)
+
+
+def grown_frame_phase(model, device, log):
+    """Phase 3: one generic 1920x1088 frame of the grown model through
+    render_fused, held against its all-plain rerun. Returns (json,
+    launches, held kernel errors, failures)."""
+    import torch
+
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+
+    renderer = NaiveRendererAndLoss(split="demo", device=device)
+    batch = orbit_batches(1)[0]
+    model.eval()
+    calls = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with recording(calls):
+        out, s = timed(lambda: renderer.vis(batch, model))
+    launches = dict(kernels.LAUNCHES)
+    kern = out["render"][0]
+    stats = model.frame_stats()
+    failures = check_frames([kern], "grown frame")
+    with plain_versions():
+        plain = renderer.vis(batch, model)["render"][0]
+    diff = float(np.abs(plain - kern).max())
+    caches = {"tree": int(model._tree_dev["node_index"].shape[0]),
+              "leaf_opt": int(model._leaf_opt_dev.shape[0]),
+              "parent_xyz": int(model._tree_dev["parent_xyz"].shape[0])}
+    log(f"grown frame: {model.num_points} points, capacity {model.capacity}, "
+        f"{model.tree.num_nodes} tree nodes, depth "
+        f"{int(model.tree.depth.max())}; cut {stats['cut']}, slice bucket "
+        f"{stats['k_visible']}, pair budget {stats['max_pairs']}; "
+        f"{s * 1e3:.1f} ms; device caches' rows {caches}; max |plain - "
+        f"kernels| {diff:.4g}; launches {launches}")
+    if diff > FRAME_MAX_ABS:
+        failures.append(f"grown frame: plain frame differs by {diff}")
+    if set(caches.values()) != {model.capacity}:
+        failures.append(f"grown frame: device caches not at the capacity: "
+                        f"{caches}")
+    for name in SERVING_KERNELS:
+        if launches[name] <= 0:
+            failures.append(f"grown frame: kernel {name} never launched")
+    errs, f = hold_calls(calls, "grown frame", log)
+    failures += f
+    return ({"ms": s * 1e3, "plain_frame_max_abs": diff, **stats,
+             "points": model.num_points, "capacity": model.capacity,
+             "launches": launches}, launches, errs, failures)
+
+
 def main() -> int:
     import torch
 
@@ -1309,6 +1833,21 @@ def main() -> int:
     if PROFILE:
         profile_steps(model, trainer, batches, float(np.median(step_ms)), log)
 
+    # ------------------------------------------------------------ growth
+    held = {}
+    growth_json, g_launches, held["growth"], gfail = growth_phase(
+        model, trainer, batches, step_ms, device, log)
+    failures += gfail
+    del model, trainer, batches
+    torch.cuda.empty_cache()
+    two_json, model, ts_launches, held["two_stage"], tfail = two_stage_phase(
+        device, log)
+    failures += tfail
+    frame_json, gf_launches, held["grown_frame"], ffail = grown_frame_phase(
+        model, device, log)
+    failures += ffail
+    del model
+
     log(json.dumps({
         "slice": slice_json,
         "train": {"step_ms_median": float(np.median(step_ms)),
@@ -1316,12 +1855,21 @@ def main() -> int:
                   "step_ms_max": float(np.max(step_ms)),
                   "steps": steps, "peak_bytes": t_peak,
                   "launches": t_launches, "step0_replay": replay},
+        "growth": growth_json, "two_stage": two_json,
+        "grown_frame": frame_json,
     }))
     kernels_json = []
-    runs = dict(serve_runs, train=t_launches)
+    runs = dict(serve_runs, train=t_launches, growth=g_launches,
+                two_stage=ts_launches, grown_frame=gf_launches)
     # main-path calls per phase: frames, or training steps
-    n_calls = {phase: TRAIN_STEPS if phase == "train" else FRAMES
-               for phase in runs}
+    n_calls = dict({phase: FRAMES for phase in serve_runs},
+                   train=TRAIN_STEPS, growth=GROWTH_STEPS,
+                   two_stage=len(two_json["steps"]), grown_frame=1)
+    # the growth phases' own calls held against the plain versions
+    for phase, errs in held.items():
+        for name, err in errs.items():
+            rows[name].setdefault("max_abs_err_by_phase", {})[phase] = err
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     for name, (src, replaces) in KERNEL_SOURCES.items():
         by_phase = {phase: run[name] for phase, run in runs.items()}
         kernels_json.append({

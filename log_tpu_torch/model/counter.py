@@ -56,6 +56,17 @@ def init_counter(num_points: int) -> dict[str, np.ndarray]:
     }
 
 
+def str_min_mean_max(name, data) -> str:
+    """One log line: count, min, mean + std and max of data."""
+    data = np.asarray(data, np.float64)
+    if data.size == 0:
+        return f"{name:10s} 0 [empty]"
+    return (
+        f"{name:10s} {data.shape[0]:8d} [{data.min():.5f}~{data.mean():.5f}"
+        f"+{data.std():.5f}~{data.max():.5f}]"
+    )
+
+
 def _scatter_drop(arr, index, values, reduce: str):
     """arr with values scattered at index (reduce 'sum' or 'amax'); indices
     equal to len(arr) drop."""
@@ -161,6 +172,9 @@ class Counter:
                 n = min(old.shape[0], capacity)
                 new[:n] = old[:n].cpu().numpy()
                 self.data[key] = torch.from_numpy(new).to(self.device)
+
+    def reset_create_steps(self) -> None:
+        self.data["create_steps"] = torch.zeros_like(self.data["create_steps"])
 
     def set_numpy(self, arrays: dict, capacity: int) -> None:
         """Load exact-size arrays (reference checkpoints store int8/int16

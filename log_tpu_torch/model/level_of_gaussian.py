@@ -7,38 +7,61 @@ reads (tree arrays, parent-attribute cache), checkpoint (de)serialization
 with the reference's key names, the training step (`train_step`,
 `training_iteration`), the inference frame `render_fused` (generic,
 flat_slice and block-pruned) and the inference row layout
-`optimize_render_layout`. Densification and its schedule (`update_by_iteration`) are ROADMAP
-queue 1.2b.
+`optimize_render_layout`, the init pass (`init_view`) and densification
+with its schedule (`update_by_iteration`): on the host (numpy, the
+Splitter) or on the device (model/densify_device.py), which give equal
+arrays from the same random draws.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..ops import gaussian_math as gm
 from ..ops import pick_backend, pick_max_pairs
+from . import densify_device as dd
 from .block_render import block_size_for, build_block_cache, render_blocks
 from .corrector import Corrector
-from .counter import Counter
+from .counter import RESET_KEYS, Counter, init_counter, str_min_mean_max
 from .gaussian import GaussianPoint, next_capacity
 from .sparse_optimizer import SparseOptimizer
+from .splitter import Splitter
 from .tensor_tree import TensorTree
 from .train_step import (StepConfig, fused_prepare_render,
                          fused_prepare_train_step, fused_root_cull,
                          fused_train_step, prepare_visibility)
 
+# the init pass sizes each point to cover this many pixels in its
+# closest view
+MIN_PIXEL = 3
+
+
+def _sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-x))
+
 
 class LoG:
     def __init__(self, gaussian: dict, tree: dict, optimizer: dict,
                  densify_and_remove: dict, use_view_correction: bool = False,
-                 check_render_scale: int = 1, device="cuda"):
-        # densify_and_remove configures densification (ROADMAP queue
-        # 1.2b); it is kept so that the YAML model args load unchanged
+                 check_render_scale: int = 1, device="cuda", seed: int = 0):
         self.device = torch.device(device)
         self.optimizer_cfg = dict(optimizer)
         self.densify_and_remove = dict(densify_and_remove)
         self.gaussian = GaussianPoint(**gaussian, device=self.device)
         self.tree = TensorTree(**tree)
         self.counter = Counter(self.gaussian.capacity, device=self.device)
+        # densify_and_remove.split_method: 'uniform' (the reference's) or
+        # 'sample'
+        self.splitter = Splitter(
+            N=tree.get("max_child", 2),
+            split_method=densify_and_remove.get("split_method", "uniform"),
+        )
+        # the densify's random draws: the host path's from a numpy
+        # Generator, the device path's from a torch.Generator on the
+        # model's device, both seeded from `seed`
+        self._rng = np.random.default_rng(seed)
+        self._torch_rng = torch.Generator(device=self.device).manual_seed(seed)
+        self.num_views = 0
         self.use_view_correction = use_view_correction
         self.view_correction = (Corrector(use_view_correction)
                                 if use_view_correction else None)
@@ -90,6 +113,22 @@ class LoG:
     def eval(self):
         self.training = False
 
+    def clear(self):
+        self.visibility_flag = None
+
+    def __repr__(self):
+        n = self.num_points
+        scal = self.gaussian.get("scaling")[:n].cpu().numpy()
+        radius = np.exp(scal).max(axis=-1)
+        opac = _sigmoid(self.gaussian.get("opacity")[:n, 0].cpu().numpy())
+        return (
+            f"Gaussian {n} points\n"
+            f"    radius [{radius.min():.4f}~{radius.mean():.4f}~"
+            f"{radius.max():.4f}]\n"
+            f"    opacity: {opac.mean():.2f}, {(opac < 0.05).sum()} < 0.05, "
+            f"{(opac < 0.1).sum()} < 0.1, "
+        )
+
     def set_stage(self, stage_name: str):
         self.stage_name = stage_name
         self._bucket = None
@@ -97,7 +136,10 @@ class LoG:
 
     def set_state(self, active_sh_degree=None, enable_sh=None,
                   min_resolution_pixel=None, current_depth=None,
-                  log_query=None, check_render_every=None):
+                  scaling_modifier=1.0, log_query=None,
+                  reset_created_steps=False, check_render_every=None):
+        # scaling_modifier is accepted (stage model_state YAML sets it) and
+        # not used, as in the JAX package
         if active_sh_degree is not None or enable_sh is not None:
             if enable_sh:
                 self.gaussian.active_sh_degree = self.gaussian.max_sh_degree
@@ -107,6 +149,9 @@ class LoG:
                 )
             print(f"[{self.__class__.__name__}] active_sh_degree: "
                   f"{self.gaussian.active_sh_degree}")
+        if reset_created_steps:
+            self.counter.reset_create_steps()
+            print(f"[{self.__class__.__name__}] reset created steps")
         if min_resolution_pixel is not None:
             self.tree.min_resolution_pixel = float(min_resolution_pixel)
         if current_depth is not None:
@@ -192,6 +237,21 @@ class LoG:
                                                self.num_points, S)
                 self._block_cache = {"cols": cols, "meta": meta, "S": S}
                 self._kb_bucket = None
+
+    def _drop_row_caches(self):
+        """Forget what was sized from or laid out for the old rows: the
+        frame buckets, the cull mask and the optimized row layout with its
+        block cache (a densify appends children at the end, a load brings
+        its own rows)."""
+        self._render_bucket = None
+        self._pair_bucket = None
+        self._kb_bucket = None
+        self._frame = None
+        self._cull_mask_dev = None
+        self._cull_bucket = None
+        self._layout_optimized = False
+        self._cull_seg_starts = None
+        self._block_cache = None
 
     def tree_device(self):
         if self._tree_dev is None and self.tree.num_points:
@@ -580,6 +640,427 @@ class LoG:
                 "pair_total": int(f["pair_total"]),
                 "eligible_blocks": c[3] if len(c) > 3 else None}
 
+    # ---------------------------------------------------------- init pass
+    def at_init_start(self):
+        self.num_views = 0
+
+    @torch.no_grad()
+    def init_view(self, camera: dict):
+        """Lower each point's radius3d_min to the 3D size that projects to
+        MIN_PIXEL pixels in this view (points the view sees only)."""
+        from ..render.renderer import camera_device
+
+        cam = camera_device(camera, self.device)
+        params = self.gaussian.params()
+        valid, r3d = _init_radius3d(params["xyz"], params["scaling"],
+                                    params["rotation"], cam, self.num_points)
+        old = self.counter.data["radius3d_min"]
+        self.counter.data["radius3d_min"] = torch.where(
+            valid, torch.minimum(old, r3d), old)
+        self.num_views += 1
+
+    def at_init_final(self):
+        """Lift every scale to at least radius3d_min, set radius3d_max to
+        0.2 x xyz_scale and size the per-view gain for the views seen."""
+        n = self.num_points
+        r3min = self.counter.data["radius3d_min"][:n].cpu().numpy()
+        print(f"[{self.__class__.__name__}] minimum "
+              f"{self.gaussian.log_radius(r3min)}")
+        arrays = self.gaussian.to_numpy()
+        floor = np.log(np.maximum(r3min, 1e-12))[:, None].repeat(3, axis=1)
+        arrays["scaling"] = np.maximum(arrays["scaling"], floor).astype(
+            np.float32)
+        self.gaussian.set_numpy(arrays)
+        self.counter.data["radius3d_max"] = torch.full(
+            (self.capacity,), float(np.float32(self.gaussian.xyz_scale * 0.2)),
+            dtype=torch.float32, device=self.device)
+        self._refresh_device_caches()
+        if self.view_correction is not None:
+            self.view_correction.init(self.num_views)
+
+    # ------------------------------------------------ densify: host path
+    def clamp_scale_host(self, arrays, counter_np):
+        smin = np.log(np.maximum(counter_np["radius3d_min"], 1e-12))[:, None]
+        smax = np.log(np.maximum(counter_np["radius3d_max"], 1e-12))[:, None]
+        arrays["scaling"] = np.clip(arrays["scaling"], smin, smax).astype(
+            np.float32)
+        return arrays
+
+    def _pull_host(self):
+        """Exact-size host copies of the params, counters and moments (the
+        densify policies write into them)."""
+        n = self.num_points
+        arrays = {k: np.array(v) for k, v in self.gaussian.to_numpy().items()}
+        counter_np = {k: np.array(v)
+                      for k, v in self.counter.to_numpy(n).items()}
+        moments_np = self.optimizer.to_numpy(n) if self.optimizer else None
+        return arrays, counter_np, moments_np
+
+    def _push_host(self, arrays, counter_np, moments_np):
+        self.gaussian.set_numpy(arrays)
+        cap = self.capacity
+        self.counter.set_numpy(counter_np, cap)
+        if moments_np is not None and self.optimizer is not None:
+            self.optimizer.moments = {"exp_avg": {}, "exp_avg_sq": {}}
+            self.optimizer.set_numpy(moments_np, cap)
+        self._rows_changed()
+
+    def _rows_changed(self):
+        """After a densify: the step bucket, the row caches and the device
+        tree arrays and parent cache are rebuilt from the new rows."""
+        self._bucket = None
+        self._counts_dev = None
+        self._drop_row_caches()
+        self._refresh_device_caches()
+
+    # ---------------------------------------------- densify: device path
+    def _use_device_densify(self) -> bool:
+        """densify_and_remove.device_densify: on, off or auto (the device
+        path from a capacity of 2^19 rows). Spilled moments live in host
+        memory, where only the host path updates them."""
+        if self.optimizer is not None and self.optimizer.spilled:
+            return False
+        mode = self.densify_and_remove.get("device_densify", "auto")
+        if mode in (True, "on", "true", 1):
+            return True
+        if mode in (False, "off", "false", 0):
+            return False
+        return self.capacity >= (1 << 19)
+
+    def _densify_buckets(self, n_keep, n_split, n_child):
+        new_n = int(n_keep) + int(n_split) * n_child
+        return new_n, next_capacity(new_n), next_capacity(int(n_split), 256)
+
+    def _n_child(self) -> int:
+        """Children per split parent on the device path: the bisections'
+        2^k >= N."""
+        n_child = 1
+        while n_child < self.splitter.N:
+            n_child *= 2
+        return n_child
+
+    def _moments_or_empty(self):
+        if self.optimizer is None:
+            return {"exp_avg": {}, "exp_avg_sq": {}}
+        return self.optimizer.moments
+
+    def _apply_device_rebuild(self, params, moments, counter, new_n, new_cap):
+        self.gaussian.set_device(params, new_n, new_cap)
+        if self.optimizer is not None:
+            self.optimizer.moments = moments
+        self.counter.data = counter
+        self._rows_changed()
+
+    @torch.no_grad()
+    def _update_init_stage_device(self, scale=1, rand_u=None):
+        d = self.densify_and_remove
+        cap = self.capacity
+        n = self.num_points
+        if rand_u is None:
+            u = torch.rand((2, cap), generator=self._torch_rng,
+                           device=self.device)
+        else:
+            u = torch.zeros((2, cap), device=self.device)
+            u[:, : rand_u.shape[1]] = torch.as_tensor(
+                np.asarray(rand_u, np.float32), device=self.device)
+        flag_split, flag_remove, reset_create, stats = dd.init_stage_flags(
+            self.gaussian.params(), self.counter.data, n, u, scale,
+            self.gaussian.xyz_scale, d["init_weight_min"],
+            d["init_radius_min"], d.get("init_radius_split", -1),
+            d["min_steps"], d["split_grad_thres"],
+            mode=d.get("init_split_method", "split_by_2d"),
+        )
+        n_split = int(stats["n_split"])
+        n_remove = int(stats["n_remove"])
+        print(f"[LoG] device densify (init): split {n_split} remove "
+              f"{n_remove} of {n}")
+        n_keep = n - n_remove - n_split  # a split parent is replaced
+        new_n, new_cap, s_cap = self._densify_buckets(n_keep, n_split,
+                                                      self._n_child())
+        counter_in = dict(self.counter.data)
+        counter_in["create_steps"] = torch.where(
+            reset_create, 0, counter_in["create_steps"])
+        params, moments, counter, _, _ = dd.rebuild_split_remove(
+            self.gaussian.params(), self._moments_or_empty(), counter_in,
+            flag_split, flag_remove, n, new_cap=new_cap, s_cap=s_cap,
+            n_child=self.splitter.N, remove_split=True,
+            keys=tuple(self.gaussian.keys),
+            scaling_decay=d.get("scaling_decay", 0.9),
+            radius3d_max_fill=float(0.2 * self.gaussian.xyz_scale),
+        )
+        # the scale clamp into [radius3d_min, radius3d_max]
+        # (clamp_scale_host)
+        smin = torch.log(torch.clamp(counter["radius3d_min"], min=1e-12))
+        smax = torch.log(torch.clamp(counter["radius3d_max"], min=1e-12))
+        params["scaling"] = torch.clamp(params["scaling"], min=smin[:, None],
+                                        max=smax[:, None])
+        self._apply_device_rebuild(params, moments, counter, new_n, new_cap)
+        print(f"[LoG] device densify (init): {n} -> {new_n} points")
+
+    @torch.no_grad()
+    def _update_depth_stage_device(self, global_iteration):
+        d = self.densify_and_remove
+        n = self.num_points
+        if self._tree_dev is None:
+            self._refresh_device_caches()
+        flag_split_d, flag_remove_d, stats = dd.depth_stage_flags(
+            self.gaussian.params(), self.counter.data, self._tree_dev, n,
+            self.current_depth, d["min_steps_split"], d["split_grad_thres"],
+            d["radius2d_thres"], d["remove_weights_thres"],
+            d["max_split_points"], sort_method=d.get("sort_method", "radii"),
+        )
+        print(f"[LoG] {global_iteration:06d} device densify (depth): split "
+              f"{int(stats['n_split'])} remove {int(stats['n_remove'])}")
+        # the tree's structure stays on the host: fetch the policy flags,
+        # apply the tree's guards, upload the effective flags
+        flag_split, flag_remove = self.tree.split_and_remove(
+            flag_split_d[:n].cpu().numpy(), flag_remove_d[:n].cpu().numpy())
+        n_split = int(flag_split.sum())
+        new_n, new_cap, s_cap = self._densify_buckets(
+            n - int(flag_remove.sum()), n_split, self._n_child())
+
+        def pad_flags(f):
+            out = torch.zeros(self.capacity, dtype=torch.bool,
+                              device=self.device)
+            out[:n] = torch.from_numpy(f).to(self.device)
+            return out
+
+        params, moments, counter, _, _ = dd.rebuild_split_remove(
+            self.gaussian.params(), self._moments_or_empty(),
+            dict(self.counter.data), pad_flags(flag_split),
+            pad_flags(flag_remove), n, new_cap=new_cap, s_cap=s_cap,
+            n_child=self.splitter.N, remove_split=False,
+            keys=tuple(self.gaussian.keys),
+            scaling_decay=d.get("scaling_decay", 0.9),
+            radius3d_max_fill=-1.0,
+        )
+        self._apply_device_rebuild(params, moments, counter, new_n, new_cap)
+        self._print_depths()
+
+    def _print_depths(self):
+        for depth in range(self.current_depth + 1):
+            n_at = int((self.tree.depth == depth).sum())
+            if n_at:
+                print(f"[LoG] depth = {depth:2d} | {n_at:10d} points")
+
+    # ------------------------------------------------------ stage updates
+    def update_init_stage(self, scale=1, rand_u=None):
+        """Init-stage densify: remove by weight and size, split by 2D
+        radius or gradient (split_by_2d) or by 3D size (split_by_3d).
+
+        rand_u: optional (2, n) uniforms for the two random keep draws (the
+        tests inject them to hold the host and device paths, and the two
+        packages, against each other)."""
+        d = self.densify_and_remove
+        if self._use_device_densify():
+            return self._update_init_stage_device(scale=scale, rand_u=rand_u)
+        arrays, cnt, moments = self._pull_host()
+        if rand_u is None:
+            rand_u = self._rng.random((2, arrays["xyz"].shape[0]))
+        weights_max = cnt["weights_max"]
+        opacity = _sigmoid(arrays["opacity"][:, 0])
+        flag_remove_weight = weights_max < d["init_weight_min"]
+        flag_nonmax = weights_max < opacity * 0.1
+        radii_max_max = cnt["radii_max_max"]
+        flag_remove_small = radii_max_max < (d["init_radius_min"] * scale) ** 2
+        print(f"[LoG] {int(flag_remove_weight.sum()):10d} points with weight "
+              f"< {d['init_weight_min']:.2f}")
+        print(f"[LoG] {int(flag_nonmax.sum()):10d} points with weight is non "
+              f"max")
+        print(f"[LoG] {int(flag_remove_small.sum()):10d} points with radius < "
+              f"{d['init_radius_min']:.2f}")
+        flag_remove_small = flag_remove_small & (rand_u[0] > 0.5)
+        flag_remove = flag_remove_small | flag_remove_weight | flag_nonmax
+        # the host path reckons the radii and the gradient in float64
+        radii_max = radii_max_max.astype(np.float64)
+        flag_activation = (cnt["create_steps"] > d["min_steps"]) & (radii_max > 0)
+        grad = cnt["grad_sum"] / np.maximum(cnt["area_sum"], 1)
+        print(f"[LoG] {str_min_mean_max('grad', grad)}")
+        act_r = radii_max[flag_activation]
+        radii_mean = act_r.mean() if act_r.size else 0.0
+        radii_std = act_r.std() if act_r.size else 0.0
+        mode = d.get("init_split_method", "split_by_2d")
+        split_thres = d.get("init_radius_split", -1) * scale
+        if mode == "split_by_2d":
+            if split_thres < 0:
+                split_thres = radii_mean + radii_std * 3
+            flag_split_grad = (grad > 10 * d["split_grad_thres"]) & (
+                radii_max > d["init_radius_min"] * scale * 8)
+            flag_split_radii = radii_max > split_thres ** 2
+            print(f"[LoG] split by grad : {int(flag_split_grad.sum()):8d}")
+            print(f"[LoG] split by radii: {int(flag_split_radii.sum()):8d}")
+            flag_split = flag_split_radii | flag_split_grad
+            flag_split = flag_activation & flag_split & (~flag_remove)
+        elif mode == "split_by_3d":
+            radius_max3 = np.exp(arrays["scaling"]).max(axis=-1)
+            flag_split = radius_max3 > self.gaussian.xyz_scale * 0.1
+            flag_remove2d = flag_activation & (
+                radius_max3 < self.gaussian.xyz_scale * 0.005)
+            flag_rand = rand_u[1] > 0.5
+            flag_remove = (flag_remove2d & flag_rand) | flag_remove
+            cnt["create_steps"][flag_remove2d & (~flag_rand)] = 0
+            flag_split = flag_split & (~flag_remove)
+        else:
+            raise ValueError(mode)
+        # never prune the model to (near) nothing: keep the top-weight points
+        min_keep = 16
+        if (~flag_remove).sum() < min_keep:
+            order = np.argsort(-weights_max)
+            flag_remove[order[:min_keep]] = False
+        new_arrays, _, _ = self.splitter.split_and_remove(
+            arrays, self.gaussian.activation, flag_split, flag_remove,
+            rng=self._rng)
+        new_moments = (self.splitter.split_and_remove_moments(
+            moments, flag_split, flag_remove) if moments else None)
+        new_cnt = self.splitter.split_and_remove_other(
+            cnt, ["create_steps", "radius3d_min", "radius3d_max"],
+            flag_split, flag_remove)
+        n_new = new_arrays["xyz"].shape[0]
+        fresh = init_counter(n_new)
+        for key in RESET_KEYS:
+            new_cnt[key] = fresh[key]
+        new_cnt["radius3d_max"] = np.full(
+            (n_new,), 0.2 * self.gaussian.xyz_scale, np.float32)
+        new_arrays = self.clamp_scale_host(new_arrays, new_cnt)
+        self._push_host(new_arrays, new_cnt, new_moments)
+        print(f"[LoG] {str_min_mean_max('radius3d_min', new_cnt['radius3d_min'])}")
+
+    def update_depth_stage(self, global_iteration):
+        """Tree densify: split leaf parents above both the gradient and the
+        radius thresholds (the top max_split_points by sort_method), remove
+        low-weight children."""
+        if self._use_device_densify():
+            return self._update_depth_stage_device(global_iteration)
+        d = self.densify_and_remove
+        log_prefix = f"[LoG] {global_iteration:06d}"
+        arrays, cnt, moments = self._pull_host()
+        radius_max = np.exp(arrays["scaling"]).max(axis=-1)
+        node_index = self.tree.node_index
+        depth = self.tree.depth
+        flag_is_parent = (node_index == -1) & (depth < self.current_depth)
+        flag_depth_parent = flag_is_parent & (
+            cnt["create_steps"] > d["min_steps_split"])
+        depth_minus1_sum = int((depth < self.current_depth).sum())
+        flag_depth_child = (node_index == -1) & (depth > 0)
+        # the host path reckons the gradient and the radii in float64
+        grad = cnt["grad_sum"] / np.maximum(cnt["area_sum"], 1)
+        radii_max_max = cnt["radii_max_max"].astype(np.float64)
+        print(f"{log_prefix} {str_min_mean_max('grad', grad[flag_is_parent])}")
+        print(f"{log_prefix} "
+              f"{str_min_mean_max('radii', radii_max_max[flag_is_parent])}")
+        flag_split_grad = grad > d["split_grad_thres"]
+        flag_split_radii = cnt["radii_max_max"] > d["radius2d_thres"]
+        print(f"{log_prefix} split by grad: {int(flag_split_grad.sum()):8d} "
+              f"split by radii: {int(flag_split_radii.sum()):8d}")
+        flag_split = flag_split_grad & flag_split_radii & flag_depth_parent
+        if flag_depth_child.sum() == 0:
+            flag_remove = np.zeros_like(flag_split)
+        else:
+            flag_remove = (flag_depth_child
+                           & (cnt["weights_max"] < d["remove_weights_thres"])
+                           & (cnt["visible_count"] > 1))
+        flag_split = flag_split & (~flag_remove)
+        num_max_split = min(int(depth_minus1_sum * 0.05), d["max_split_points"])
+        sort_method = d.get("sort_method", "radii")
+        if flag_split.sum() > num_max_split and num_max_split > 0:
+            if sort_method == "radii":
+                vals = radii_max_max
+            elif sort_method == "opacity":
+                vals = _sigmoid(arrays["opacity"][:, 0]).astype(np.float64)
+            else:
+                vals = grad
+            cand = vals[flag_split]
+            thres = np.partition(cand, -num_max_split)[-num_max_split]
+            print(f"{log_prefix} select top {num_max_split} points to split. "
+                  f"New {sort_method} thres = {thres:.3f}")
+            flag_split = flag_split & (vals >= thres)
+        flag_split, flag_remove = self.tree.split_and_remove(flag_split,
+                                                             flag_remove)
+        new_arrays, _, _ = self.splitter.split_and_remove(
+            arrays, self.gaussian.activation, flag_split, flag_remove,
+            remove_split=False, rng=self._rng)
+        new_moments = (self.splitter.split_and_remove_moments(
+            moments, flag_split, flag_remove, remove_split=False)
+            if moments else None)
+        new_cnt = self.splitter.split_and_remove_other(
+            cnt, ["create_steps", "radius3d_min", "radius3d_max"],
+            flag_split, flag_remove, remove_split=False)
+        fresh = init_counter(new_arrays["xyz"].shape[0])
+        for key in RESET_KEYS:
+            new_cnt[key] = fresh[key]
+        num_split = int(flag_split.sum()) * self.splitter.N
+        if num_split > 0:
+            scaling_decay = d.get("scaling_decay", 0.9)
+            new_cnt["radius3d_max"][-num_split:] = np.repeat(
+                scaling_decay * radius_max[flag_split], self.splitter.N)
+        self._push_host(new_arrays, new_cnt, new_moments)
+        self._print_depths()
+
+    # ----------------------------------------------------------- schedule
+    def upgrade_tree(self):
+        if self.current_depth == 0:
+            self.tree.initialize(self.num_points)
+        self.current_depth = 20
+        print(f"[{self.__class__.__name__}] current depth: {self.current_depth}")
+        self.counter.reset(self.num_points, self.capacity)
+        self._refresh_device_caches()
+
+    def densify_due(self, iteration) -> bool:
+        """True when update_by_iteration changes the model's device state
+        at this iteration (a counter reset, a densify or a tree upgrade);
+        the SH upgrade only bumps a host scalar."""
+        d = self.densify_and_remove
+        densify_from_iter = d["densify_from_iter"] * self.base_iter
+        densify_every_iter = d["densify_every_iter"] * self.base_iter
+        if (iteration + 1) == densify_from_iter:
+            return True
+        return ((iteration + 1) > densify_from_iter
+                and (iteration + 1) % densify_every_iter == 0)
+
+    def update_by_iteration(self, iteration, global_iteration):
+        mutated = self._update_by_iteration(iteration, global_iteration)
+        if mutated and self.optimizer is not None:
+            # host-spilled moments past the memory threshold
+            self.optimizer.maybe_spill(self.num_points)
+        return mutated
+
+    def _update_by_iteration(self, iteration, global_iteration):
+        """The densify, SH and tree schedule of one stage iteration: a
+        counter reset at densify_from_iter, then every densify_every_iter
+        a tree upgrade (outside the init stage, every upgrade_repeat x
+        (depth + 1) densify periods), an init-stage densify while the tree
+        is flat, and on the tree a depth densify every second period and a
+        counter reset between."""
+        d = self.densify_and_remove
+        base_iter = self.base_iter
+        upgrade_sh_iter = d["upgrade_sh_iter"] * base_iter
+        if global_iteration > 0 and (global_iteration + 1) % upgrade_sh_iter == 0:
+            self.gaussian.oneupSHdegree()
+        densify_from_iter = d["densify_from_iter"] * base_iter
+        densify_every_iter = d["densify_every_iter"] * base_iter
+        sum_iter = self.current_depth + 1
+        upgrade_tree_iter = densify_every_iter * sum_iter * d["upgrade_repeat"]
+        if (iteration + 1) == densify_from_iter:
+            self.counter.reset(self.num_points, self.capacity)
+            return False
+        if (iteration + 1 > densify_from_iter
+                and (iteration + 1) % densify_every_iter == 0):
+            if ((iteration + 1) % upgrade_tree_iter == 0
+                    and self.stage_name != "init"):
+                self.upgrade_tree()
+                return True
+            if self.current_depth == 0:
+                if self.stage_name == "init":
+                    self.update_init_stage()
+                else:
+                    self.update_init_stage(scale=2)
+            elif (iteration + 1) % (2 * densify_every_iter) == 0:
+                self.update_depth_stage(global_iteration)
+            else:
+                self.counter.reset(self.num_points, self.capacity)
+            return True
+        return False
+
     # ------------------------------------------------- render layout / blocks
     def optimize_render_layout(self, morton_bits: int = 10,
                                mode: str = "root_major"):
@@ -750,16 +1231,26 @@ class LoG:
             self.optimizer.set_numpy(moments_np, self.capacity)
         if self.tree.num_nodes > 0:
             self.current_depth = int(self.tree.depth.max())
-        self._render_bucket = None
-        self._pair_bucket = None
-        self._frame = None
         self._corr_dev = None
-        # freshly loaded state undoes any earlier layout optimization
-        self._layout_optimized = False
-        self._cull_seg_starts = None
-        self._block_cache = None
+        self._drop_row_caches()
         self._refresh_device_caches()
         return True
+
+
+def _init_radius3d(xyz, scaling, rotation, cam: dict, n_alive: int):
+    """(valid, r3d) of the init pass: valid where a live point projects to
+    a positive radius r2d, and r3d = scale_x * MIN_PIXEL / r2d there (the
+    3D size that covers MIN_PIXEL pixels), scale_x elsewhere."""
+    s = torch.exp(scaling)
+    r = rotation / torch.linalg.norm(rotation, dim=-1, keepdim=True)
+    r2d = gm.compute_radius2d(xyz, s, r, cam["world_view"], cam["full_proj"],
+                              cam["focal_x"], cam["focal_y"], cam["tan_fovx"],
+                              cam["tan_fovy"])
+    alive = torch.arange(xyz.shape[0], device=xyz.device) < n_alive
+    valid = (r2d > 0) & alive
+    r3d = s[:, 0] * torch.where(valid,
+                                MIN_PIXEL / torch.clamp(r2d, min=1e-9), 1.0)
+    return valid, r3d
 
 
 def _fg_mask_bbox(fg_mask, H: int, W: int, device):

@@ -2,8 +2,9 @@
 log_tpu/model/tensor_tree.py.
 
 * The host tree (numpy) holds the structure; its shape-changing ops
-  (initialize / split / remove, run at densification cadence) come with the
-  training slice.
+  (initialize / split / remove) run on the host at densification cadence:
+  a split appends num_split * max_child children, a remove compacts the
+  rows and renumbers by cumsum.
 * Per-camera cut selection runs on the device every frame as a per-point
   predicate over all points: `traverse_cut` walks the levels with parent
   gathers (the exact BFS equivalent), `flat_cut` needs one gather given the
@@ -53,6 +54,24 @@ class TensorTree:
     def is_root(self) -> np.ndarray:
         return self.index_parent == -1
 
+    def initialize(self, num_points: int, flag: np.ndarray | None = None) -> None:
+        """Every point becomes a root (a leaf without parent)."""
+        root_index = np.arange(num_points, dtype=np.int32)
+        if flag is None:
+            print(f"[{self.__class__.__name__}] initialize tree: "
+                  f"{num_points} points")
+        else:
+            print(f"[{self.__class__.__name__}] initialize tree: "
+                  f"{int(flag.sum())}/{num_points} points")
+            root_index = root_index[flag]
+        self.root_index = root_index
+        self.node_index = np.full((num_points,), -1, np.int32)
+        self.index_parent = np.full((num_points,), -1, np.int32)
+        self.local_index = np.full((num_points,), -1, np.int32)
+        self.depth = np.zeros((num_points,), np.int32)
+        self.root_id = np.arange(num_points, dtype=np.int32)
+        self.tree = np.zeros((0, self.max_child), np.int32) - 1
+
     def __repr__(self):
         num_parents = int((self.node_index > -1).sum())
         num_leaves = int((self.node_index == -1).sum())
@@ -60,6 +79,86 @@ class TensorTree:
             f"Tree: {self.num_points} points:{num_parents} parents, "
             f"{num_leaves} leaves, {self.num_nodes} nodes"
         )
+
+    def print_level(self):
+        depth_max = int(self.depth.max()) if self.num_points else 0
+        print(f"[{self.__class__.__name__}] tree level: {depth_max + 1}")
+        for i in range(depth_max + 1):
+            print("  " * (i + 1), f"level {i}: {int((self.depth == i).sum())}")
+
+    # ------------------------------------------------------- structural ops
+    def split(self, parent_index: np.ndarray) -> None:
+        """Append max_child children per parent: the parents become nodes,
+        the children leaves one level deeper, in parent order."""
+        parent_index = np.asarray(parent_index, np.int64)
+        num_split = len(parent_index)
+        self.node_index[parent_index] = (
+            np.arange(num_split, dtype=np.int32) + self.num_nodes
+        )
+        child_index = (
+            np.arange(num_split * self.max_child, dtype=np.int32)
+            + self.num_points
+        ).reshape(num_split, self.max_child)
+        self.tree = np.concatenate([self.tree, child_index], axis=0)
+        num_new = num_split * self.max_child
+        index_parent = np.repeat(parent_index.astype(np.int32), self.max_child)
+        depth = np.repeat(self.depth[parent_index], self.max_child) + 1
+        local_index = np.tile(np.arange(self.max_child, dtype=np.int32),
+                              num_split)
+        self.node_index = np.concatenate(
+            [self.node_index, np.full((num_new,), -1, np.int32)])
+        self.index_parent = np.concatenate([self.index_parent, index_parent])
+        self.depth = np.concatenate([self.depth, depth])
+        self.local_index = np.concatenate([self.local_index, local_index])
+        self.root_id = np.concatenate(
+            [self.root_id, np.repeat(self.root_id[parent_index],
+                                     self.max_child)])
+
+    def remove(self, index: np.ndarray) -> None:
+        """Remove leaf points, compact the rows and renumber the
+        references to them; a node whose children are all gone becomes a
+        leaf again."""
+        index = np.asarray(index, np.int64)
+        parent_index = self.index_parent[index].astype(np.int64)
+        local_index = self.local_index[index].astype(np.int64)
+        node_index = self.node_index[parent_index].astype(np.int64)
+        children_index = self.tree[node_index, local_index].astype(np.int64)
+        self.tree[node_index, local_index] = -1
+        flag_keep = np.ones((self.num_points,), bool)
+        flag_keep[children_index] = False
+        for key in self.KEYS:
+            setattr(self, key, getattr(self, key)[flag_keep])
+        left_index = np.cumsum(flag_keep) - 1
+        flag_node_keep = self.tree > -1
+        self.tree[flag_node_keep] = left_index[
+            self.tree[flag_node_keep].astype(np.int64)].astype(np.int32)
+        flag_nonroot = self.index_parent > -1
+        self.index_parent[flag_nonroot] = left_index[
+            self.index_parent[flag_nonroot].astype(np.int64)].astype(np.int32)
+        # root rows never shift (only appended children are removed), but
+        # renumber them the same way as index_parent
+        self.root_id = left_index[self.root_id.astype(np.int64)].astype(
+            np.int32)
+        flag_parent = self.node_index != -1
+        emptied = (self.tree[self.node_index[flag_parent].astype(np.int64)]
+                   < 0).all(axis=-1)
+        tmp = flag_parent.copy()
+        tmp[flag_parent] = emptied
+        self.node_index[tmp] = -1
+
+    def split_and_remove(self, flag_split, flag_remove):
+        """The guarded pair: only leaves below max_level split, roots are
+        never removed, and the removal runs after the split. Returns the
+        effective flags, sized as before the split appended children."""
+        flag_remove = flag_remove & self.is_leaf & (~self.is_root)
+        flag_split = flag_split & self.is_leaf & (self.depth < self.max_level)
+        index_split = np.where(flag_split)[0]
+        index_remove = np.where(flag_remove)[0]
+        print(f" -> [{self.__class__.__name__}] split: {index_split.shape[0]} "
+              f"remove: {index_remove.shape[0]}")
+        self.split(index_split)
+        self.remove(index_remove)
+        return flag_split, flag_remove
 
     def ensure_root_id(self) -> None:
         """Reconstruct root_id by walking parents when it is missing."""

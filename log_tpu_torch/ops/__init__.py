@@ -12,14 +12,16 @@ import torch
 
 
 def pick_backend(num_points: int | None = None, device="cpu") -> str:
-    """'tiled' on a CUDA device. On the CPU: the LOG_TPU_BACKEND override,
-    else the oracle for small scenes and the tiled path (plain versions of
-    its kernels) above 16384 points, where O(P*HW) costs more."""
-    if torch.device(device).type == "cuda":
-        return "tiled"
+    """The LOG_TPU_BACKEND override where it is set (on any device: the
+    oracle run trains with "reference"); else 'tiled' on a CUDA device,
+    and on the CPU the oracle for small scenes and the tiled path (plain
+    versions of its kernels) above 16384 points, where O(P*HW) costs
+    more."""
     env = os.environ.get("LOG_TPU_BACKEND")
     if env:
         return env
+    if torch.device(device).type == "cuda":
+        return "tiled"
     if num_points is not None and num_points > 16384:
         return "tiled"
     return "reference"

@@ -19,13 +19,39 @@ below 1/255, contribution dropped once transmittance would fall under 1e-4.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .projection import ALPHA_MAX, ALPHA_MIN, T_EPS, Splats, project_gaussians
 
 
+def _chunk_body(xy, cn, op, col, trans, gx, gy):
+    """One depth-sorted chunk over all pixels: its color contribution
+    (n_pix, C), its transmittance product (n_pix,), the per-pixel max
+    weight and its lane (n_pix,), and the per-gaussian max weight
+    (chunk,)."""
+    dx = xy[:, 0:1] - gx[None, :]  # (chunk, n_pix)
+    dy = xy[:, 1:2] - gy[None, :]
+    power = -0.5 * (cn[:, 0:1] * dx * dx + cn[:, 2:3] * dy * dy) \
+        - cn[:, 1:2] * dx * dy
+    alpha = torch.clamp(op[:, None] * torch.exp(power), max=ALPHA_MAX)
+    alpha = torch.where((power <= 0.0) & (alpha >= ALPHA_MIN), alpha, 0.0)
+
+    cp_incl = torch.cumprod(1.0 - alpha, dim=0)
+    cp_excl = torch.cat([torch.ones_like(cp_incl[:1]), cp_incl[:-1]], 0)
+    t_after = trans[None, :] * cp_incl
+    w = trans[None, :] * cp_excl * alpha
+    w = torch.where(t_after >= T_EPS, w, 0.0)
+    cw, ca = torch.max(w, dim=0)
+    return w.T @ col, cp_incl[-1], cw, ca, torch.max(w, dim=1).values
+
+
 def _composite(splats: Splats, colors, image_height: int, image_width: int,
                background, chunk: int):
-    """Depth-sorted front-to-back compositing over all pixels."""
+    """Depth-sorted front-to-back compositing over all pixels. With
+    autograd on, each chunk is recomputed in the backward
+    (torch.utils.checkpoint): its (chunk, H*W) intermediates are not kept,
+    so the saved tensors are O(H*W) per chunk, as the JAX package's
+    jax.checkpoint of its scan body gives."""
     P = splats.opacity.shape[0]
     dev = colors.device
     n_pix = image_height * image_width
@@ -49,32 +75,22 @@ def _composite(splats: Splats, colors, image_height: int, image_width: int,
     best_w = torch.zeros((n_pix,), dtype=torch.float32, device=dev)
     best_id = torch.full((n_pix,), -1, dtype=torch.int64, device=dev)
     point_weight = torch.zeros((P,), dtype=torch.float32, device=dev)
+    remat = torch.is_grad_enabled()
     for c0 in range(0, P, chunk):
         sl = slice(c0, min(c0 + chunk, P))
-        dx = pix_xy[sl, 0:1] - gx[None, :]  # (chunk, n_pix)
-        dy = pix_xy[sl, 1:2] - gy[None, :]
-        cn = conic[sl]
-        power = (
-            -0.5 * (cn[:, 0:1] * dx * dx + cn[:, 2:3] * dy * dy)
-            - cn[:, 1:2] * dx * dy
-        )
-        alpha = torch.clamp(opac[sl, None] * torch.exp(power), max=ALPHA_MAX)
-        alpha = torch.where((power <= 0.0) & (alpha >= ALPHA_MIN), alpha, 0.0)
-
-        cp_incl = torch.cumprod(1.0 - alpha, dim=0)
-        cp_excl = torch.cat([torch.ones_like(cp_incl[:1]), cp_incl[:-1]], 0)
-        t_after = trans[None, :] * cp_incl
-        w = trans[None, :] * cp_excl * alpha
-        w = torch.where(t_after >= T_EPS, w, 0.0)
-
-        color_acc = color_acc + w.T @ cols[sl]
-        trans = trans * cp_incl[-1]
-
-        cw, ca = torch.max(w, dim=0)
+        inputs = (pix_xy[sl], conic[sl], opac[sl], cols[sl], trans, gx, gy)
+        if remat:
+            out = checkpoint(_chunk_body, *inputs, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            out = _chunk_body(*inputs)
+        color_add, trans_chunk, cw, ca, pw = out
+        color_acc = color_acc + color_add
+        trans = trans * trans_chunk
         take = cw > best_w
         best_w = torch.where(take, cw, best_w)
         best_id = torch.where(take, c0 + ca, best_id)
-        point_weight[sl] = torch.max(w, dim=1).values
+        point_weight[sl] = pw
 
     image = color_acc + trans[:, None] * background[None, :].to(torch.float32)
     image = image.T.reshape(n_chan, image_height, image_width)

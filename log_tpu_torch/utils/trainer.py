@@ -6,7 +6,7 @@ under `use_randback`), the random LoD pixel threshold (`use_rand_radius`),
 the GT as uint8 on the device (kept there across steps by the GT cache),
 and `LoG.training_iteration`. Every random draw comes from the trainer's own
 `torch.Generator`. `fit`, the init pass, validation, overlook renders and
-checkpoints are ROADMAP queue 1.2b.
+checkpoints are ROADMAP queue 1, item 3.
 """
 from __future__ import annotations
 
@@ -22,10 +22,16 @@ class Trainer:
         self.global_iterations = 0
         self.generator = torch.Generator().manual_seed(seed)
         # device-resident GT cache, keyed by (view, shape), up to a byte
-        # budget (cfg gt_cache_mb, default 512); fit() disables it for
-        # datasets that serve random crops
+        # budget (cfg gt_cache_mb, default 512); off until set_gt_cache
         self.gt_cache_limit_bytes = int(self.cfg.get("gt_cache_mb", 512)) << 20
-        self._gt_cache_ok = True
+        self.set_gt_cache(False)
+
+    def set_gt_cache(self, enabled: bool) -> None:
+        """Empty the GT device cache and turn it on or off. It starts off,
+        as in the JAX package, whose fit turns it on per stage for datasets
+        that serve full frames only: under random crops one (view, shape)
+        key holds different content from step to step."""
+        self._gt_cache_ok = bool(enabled)
         self._gt_dev_cache = {}
         self._gt_cache_bytes = 0
 

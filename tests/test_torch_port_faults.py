@@ -1,0 +1,124 @@
+"""Three behaviours where the port follows the JAX package: the backend
+override is read first (also on a CUDA device), the oracle recomputes each
+chunk in its backward instead of keeping its (chunk, H*W) intermediates,
+and the trainer's GT device cache starts off."""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import log_tpu.ops as ops_jax
+import log_tpu_torch.ops as ops
+from log_tpu_torch.dataset.base import prepare_camera
+from log_tpu_torch.ops import rasterize_ref
+from log_tpu_torch.utils.trainer import Trainer
+
+SIZES = (None, 100, 16384, 16385, 10 ** 6)
+
+
+# ----------------------------------------------------- the backend override
+def test_backend_override_is_read_on_cuda(monkeypatch):
+    """A torch.device("cuda") needs no GPU."""
+    monkeypatch.setenv("LOG_TPU_BACKEND", "reference")
+    for n in SIZES:
+        assert ops.pick_backend(n, torch.device("cuda")) == "reference"
+        assert ops.pick_backend(n, "cuda") == "reference"
+    monkeypatch.delenv("LOG_TPU_BACKEND")
+    for n in SIZES:
+        assert ops.pick_backend(n, "cuda") == "tiled"
+
+
+@pytest.mark.parametrize("env", [None, "reference", "tiled"])
+def test_backend_matches_jax_on_cpu(monkeypatch, env):
+    if env is None:
+        monkeypatch.delenv("LOG_TPU_BACKEND", raising=False)
+    else:
+        monkeypatch.setenv("LOG_TPU_BACKEND", env)
+    for n in SIZES:
+        assert ops.pick_backend(n, "cpu") == ops_jax.pick_backend(n), n
+
+
+# ------------------------------------------------ the oracle's chunk remat
+H, W, P, CHUNK = 24, 40, 96, 32
+
+
+def _inputs():
+    rng = np.random.default_rng(3)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, requires_grad=True)
+    q = rng.normal(size=(P, 4))
+    xyz = np.stack([rng.uniform(-2, 2, P), rng.uniform(-1, 1, P),
+                    rng.uniform(-1, 1, P)], axis=1)
+    pos = np.array([0.0, -8.0, 0.0])
+    R = np.array([[1.0, 0, 0], [0, 0, -1.0], [0, 1.0, 0]])
+    fx = 30.0
+    K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1]])
+    pc = prepare_camera({"K": K, "R": R, "T": (-R @ pos).reshape(3, 1),
+                         "H": H, "W": W, "center": pos.reshape(3, 1)},
+                        1, 0.01, 100.0)
+    tx, ty = math.tan(pc["FoVx"] * 0.5), math.tan(pc["FoVy"] * 0.5)
+    world_view = pc["world_view_transform"]
+    full_proj = pc["full_proj_transform"]
+    leaves = dict(xyz=f(xyz), colors=f(rng.uniform(0, 1, (P, 3))),
+                  opacity=f(rng.uniform(0.3, 0.9, P)),
+                  scaling=f(rng.uniform(0.1, 0.3, (P, 3))),
+                  rotation=f(q / np.linalg.norm(q, axis=1, keepdims=True)))
+    cam = dict(means2d_offset=torch.zeros(P, 2),
+               world_view=torch.from_numpy(world_view),
+               full_proj=torch.from_numpy(full_proj), focal_x=W / (2 * tx),
+               focal_y=H / (2 * ty),
+               tan_fovx=tx, tan_fovy=ty, background=torch.zeros(3),
+               image_height=H, image_width=W, chunk=CHUNK)
+    return leaves, cam
+
+
+def _saved_bytes_and_grads():
+    leaves, cam = _inputs()
+    saved = []
+
+    def pack(t):
+        saved.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = rasterize_ref.rasterize(**leaves, **cam)
+    loss = (out["render"] * torch.linspace(0, 1, H * W).reshape(H, W)).sum() \
+        + out["alpha"].sum()
+    loss.backward()
+    return sum(saved), {k: v.grad for k, v in leaves.items()}
+
+
+def test_oracle_recomputes_chunks_in_backward(monkeypatch):
+    """The saved tensors stay below one (chunk, H*W) buffer per chunk with
+    the recompute, and the gradients equal those without it."""
+    remat_bytes, remat_grads = _saved_bytes_and_grads()
+    monkeypatch.setattr(rasterize_ref, "checkpoint",
+                        lambda fn, *args, **kwargs: fn(*args))
+    plain_bytes, plain_grads = _saved_bytes_and_grads()
+    n_chunks = math.ceil(P / CHUNK)
+    one_buffer = CHUNK * H * W * 4
+    assert remat_bytes < n_chunks * one_buffer, remat_bytes
+    assert plain_bytes > 4 * n_chunks * one_buffer, plain_bytes
+    for key, g in plain_grads.items():
+        assert float(g.abs().max()) > 0, key
+        assert torch.equal(remat_grads[key], g), key
+
+
+# ---------------------------------------------------------- the GT cache
+class _Model:
+    device = torch.device("cpu")
+
+
+def test_trainer_gt_cache_starts_off():
+    trainer = Trainer({}, _Model(), None)
+    gt = np.zeros((3, 4, 5), np.uint8)
+    assert not trainer._gt_cache_ok
+    a = trainer._gt_to_device(0, gt)
+    assert trainer._gt_dev_cache == {} and trainer._gt_cache_bytes == 0
+    assert a is not trainer._gt_to_device(0, gt)
+    trainer.set_gt_cache(True)
+    b = trainer._gt_to_device(0, gt)
+    assert b is trainer._gt_to_device(0, gt)
+    assert trainer._gt_cache_bytes == gt.nbytes
+    trainer.set_gt_cache(False)
+    assert trainer._gt_dev_cache == {} and trainer._gt_cache_bytes == 0

@@ -231,11 +231,13 @@ def _tiny_trainer(seed, monkeypatch):
 
 def test_trainer_training_step(monkeypatch):
     """Backgrounds and LoD thresholds come from the trainer's generator (the
-    same seed gives the same steps); the GT is uploaded once per view; the
-    model's LoD threshold is restored after each step."""
+    same seed gives the same steps); with the GT cache on (full frames) the
+    GT is uploaded once per view; the model's LoD threshold is restored
+    after each step."""
     losses = {}
     for run, seed in (("a", 7), ("b", 7), ("c", 8)):
         model, trainer, batch = _tiny_trainer(seed, monkeypatch)
+        trainer.set_gt_cache(True)
         before = model.tree.min_resolution_pixel
         out = []
         for _ in range(2):
