@@ -79,11 +79,33 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    kernel calls held against the plain versions;
 11. grown frame: one generic 1920x1088 frame of the grown model, held
    against its all-plain rerun, its kernel calls against the plain
-   versions, and the device caches at the new capacity.
+   versions, and the device caches at the new capacity;
+12. cli: a probe of the optional host packages (cv2, PIL, yaml,
+   torchvision, ffmpeg); the config/synthetic_conv scene (20,000
+   Gaussians, 36 views at 256x320, .png) made on the card by
+   log_tpu_torch.apps.make_synthetic_scene; its full schedule (init 144,
+   tree 720, tree_full 288 steps, validation every 360) through
+   log_tpu_torch.apps.train under output/chip_cli (every step must launch
+   K4, K3, K1 and K2, every validation render K4, K3 and K1 without stats;
+   the stage checkpoints and their _wotrain twins written; the loss of the
+   last 72 steps of init and of tree below that of their first 72); the
+   same call again, which must resume-skip every stage; final_val (at
+   least 20 dB and SSIM 0.8; the JAX package's 27.33 / 0.941 and 28.38 /
+   0.952 and its curve printed beside, from a .jpg scene); demo_interpolate
+   on the flat_slice frame (60 frames after 11 warm-up, K4 and K5
+   launched) and val (3 gt / renders dumps). Each sub-phase's launches are
+   split into those of its steps, validation views (prepare_from_camera's
+   cull render and render_one) and eval-mode frames, each counted in the
+   run. Held against the plain versions on copies of
+   their own inputs: the first step after a densify in init and in tree
+   (K4, K3, K1 cull and full stats, K2), the first validation render of
+   training and of final_val, the demo's first timed frame (K4, K3, K1,
+   K5, and K3p where it ran) and val's first frame.
 With --profile, 4 more frames of the generic, flat_slice and block phases
 and 4 more training steps run under torch.profiler, each after its timed
-run; the device time by kernel goes to build/{generic,flat_slice,block,
-train}_profile.txt.
+run, and 4 steps of the cli run's tree stage (steps 600-603) are traced in
+place; the device time by kernel goes to build/{generic,flat_slice,block,
+train,cli_train}_profile.txt.
 
 The line before the last is the kernel table as JSON (per kernel: launches
 by phase and per call, max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -216,6 +238,32 @@ EXPECTED_EVENTS = {
 STEP_KERNELS = ("pack_rows", "expand_with_keys", "rasterize_fwd",
                 "rasterize_bwd")
 PLY_PATH = "build/chip_smoke_roots.ply"
+# the cli phase: the config/synthetic_conv scene (BASELINE.md:37) made on
+# the card, and its full schedule through the port's CLI
+CLI_SCENE = "output/chip_scene"
+CLI_EXP = "output/chip_cli/log"
+CLI_CFG = "config/synthetic_conv/train.yml"
+CLI_SCENE_ARGS = [CLI_SCENE, "20000", "36", "256", "320", ".png"]
+CLI_OPTS = ["root", CLI_SCENE, "PLYNAME", CLI_SCENE + "/sparse/0/sparse.npz",
+            "exp", CLI_EXP, "dataset.args.ext", ".png",
+            "val_dataset.args.ext", ".png"]
+# the demo on the flat_slice frame, so that it runs the packed kernels
+CLI_DEMO_OPTS = ["model.args.tree.cut_method", "flat_slice"]
+CLI_DEMO_FRAMES, CLI_DEMO_WARMUP = 60, 11
+CLI_DEMO_KERNELS = ("pack_rows", "rasterize_fwd_packed")
+# the eval-mode frame held against the plain versions, by sub-phase: the
+# demo's first timed frame and val's first
+CLI_HELD_FRAME = {"demo": CLI_DEMO_WARMUP, "val": 0}
+CLI_LOSS_WINDOW = 72  # the config's log_interval
+CLI_MIN_PSNR, CLI_MIN_SSIM = 20.0, 0.8
+CLI_VAL_KEYS = ("iteration", "num_points", "l1", "psnr", "ssim")
+# the JAX package's final-val on this config (BASELINE.md:210-218)
+CLI_JAX_FINAL = {"tiled": [27.33, 0.941], "oracle": [28.38, 0.952]}
+CLI_JAX_CURVE = "artifacts/r4_quality/scalars.jsonl"
+# optional host packages the cli phase runs without
+CLI_BLOCKED = ("cv2", "PIL", "yaml", "torchvision")
+# --profile: the cli run's steps from this one on (in its tree stage)
+CLI_PROFILE_AT = 600
 # host path against device path after one densify (tests/test_densify_device.py)
 DENSIFY_RTOL, DENSIFY_ATOL = 1e-5, 1e-6
 
@@ -293,15 +341,31 @@ def plain_versions():
         yield
 
 
+def _copied(x):
+    """x with every tensor in it (in lists, tuples and dicts) detached and
+    cloned."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, dict):
+        return {k: _copied(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_copied(v) for v in x)
+    return x
+
+
 @contextlib.contextmanager
-def recording(calls):
-    """Record the arguments of every kernel wrapper call into calls[name]."""
+def recording(calls, copy=False):
+    """Record the arguments of every kernel wrapper call into calls[name]
+    (with copy, copies of them, which later calls cannot overwrite)."""
     from log_tpu_torch.ops import expand as ex
     from log_tpu_torch.ops import rasterize_tiled as rt
 
     def recorder(name, fn):
         def call(*args, **kwargs):
-            calls.setdefault(name, []).append((args, kwargs))
+            calls.setdefault(name, []).append(
+                _copied((args, kwargs)) if copy else (args, kwargs))
             return fn(*args, **kwargs)
         return call
 
@@ -359,23 +423,46 @@ def _self_device_us(e):
     return e.self_cuda_time_total if us is None else us
 
 
-def kernel_device_ms(fn, reps, kernel):
+PROFILE_PAD_S = 0.05  # idle host time at each end of a profiled window
+PROFILE_TRIES = 3
+
+
+def kernel_device_ms(fn, reps, kernel, log=print):
     """(ms, launches) per call of fn: the device time of the CUDA kernels
     whose name holds `kernel`, over reps calls under torch.profiler after
-    one warm-up, and their launch count; without the host's gaps."""
+    one warm-up, and their launch count; without the host's gaps.
+
+    The profiler keeps only the device records that fall inside its capture
+    window, on timestamps converted from the card's clock to the host's: a
+    window of a few short kernels can lose all of them (a K6 window of
+    10 x 0.06 ms once reported 0 launches). So the calls sit between two
+    idle pads, and a window that holds none of the kernel's launches is
+    taken again, up to PROFILE_TRIES times, each retry logged with the
+    device records the window did hold."""
+    import time
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        rows = [e for e in dev if kernel in e.key]
+        if rows or attempt == PROFILE_TRIES:
+            break
+        log(f"profiler window {attempt} of {PROFILE_TRIES} held no "
+            f"'{kernel}' launch in {reps} calls; device records: "
+            f"{[(e.key[:60], e.count) for e in dev][:8]}; taking it again")
     return (sum(_self_device_us(e) for e in rows) / 1e3 / reps,
             sum(e.count for e in rows) / reps)
 
@@ -725,7 +812,7 @@ def compare_packed_kernels(calls, log):
     ms = device_ms(lambda: rt.rasterize_forward_packed(*args, **kw), 10)
     dev_ms, dev_n = kernel_device_ms(
         lambda: rt.rasterize_forward_packed(*args, **kw), 10,
-        "rasterize_fwd_kernel")
+        "rasterize_fwd_kernel", log)
     pms = device_ms(lambda: rt.rasterize_forward_packed_plain(*args, **kw), 2)
     pairs, dense, gated = composite_counts(args[0], args[1], args[2],
                                            full[5], args[4], packed=True)
@@ -766,7 +853,8 @@ def compare_k6(calls, log):
                     .max()) for n in k[0])
     ms = device_ms(lambda: compact.stream_compact_cols(*args, **kw), 10)
     dev_ms, dev_n = kernel_device_ms(
-        lambda: compact.stream_compact_cols(*args, **kw), 10, "compact")
+        lambda: compact.stream_compact_cols(*args, **kw), 10, "compact",
+        log)
     pms = device_ms(lambda: compact.stream_compact_cols_plain(*args, **kw), 10)
     cols, keep, kk = args
     # bytes the compaction needs: the mask, the words of the rows it keeps
@@ -1137,10 +1225,7 @@ def profile_window(label, run, n, wall_ms, log, ranges=False):
     of kernel time) against wall_ms, the median un-profiled call, and the
     top kernels; the full table goes to build/{label}_profile.txt. ranges:
     also list the training step's labelled ranges (record_function)."""
-    import os
-
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1149,6 +1234,16 @@ def profile_window(label, run, n, wall_ms, log, ranges=False):
         for i in range(n):
             run(i)
         torch.cuda.synchronize()
+    report_profile(label, prof, n, wall_ms, log, ranges)
+
+
+def report_profile(label, prof, n, wall_ms, log, ranges=False):
+    """profile_window's report of a finished torch.profiler run over n
+    calls."""
+    import os
+
+    from torch.autograd import DeviceType
+
     avgs = prof.key_averages()
 
     def dev_ms(e):  # per call
@@ -1208,38 +1303,70 @@ def profile_frames(label, model, renderer, batches, frame_ms, log):
 
 # ------------------------------------------------------------------ growth
 def hold_calls(calls, label, log):
-    """K4 and K3 (bit-exact), K1 (each with_stats mode recorded) and K2
-    (where the call ran one) on the recorded inputs of one main-path step
-    or frame, against their plain versions. Returns ({kernel: max_abs_err},
-    failures)."""
+    """Every K4 pack, K3 and K3p (bit-exact), K1 (each with_stats mode
+    recorded), K5 (K1's tolerances) and K2, those of them that the call
+    ran, on the recorded inputs of one main-path step or frame, against
+    their plain versions. Returns ({kernel: max_abs_err}, failures)."""
     import torch
 
+    from log_tpu_torch.ops import expand as ex
     from log_tpu_torch.ops import rasterize_tiled as rt
-    from log_tpu_torch.ops.expand import (expand_with_keys,
-                                          expand_with_keys_plain)
 
     errs, fails = {}, []
     with torch.no_grad():
-        args, kw = calls["pack_rows"][-1]
-        k, p = rt.pack_rows(*args, **kw), rt.pack_rows_plain(*args, **kw)
-        errs["pack_rows"] = float((k - p).abs().max())
-        if not torch.equal(_bits(k), _bits(p)):
-            fails.append(f"{label}: K4 pack_rows is not bit-exact")
-        args, kw = calls["expand_with_keys"][-1]
-        k = expand_with_keys(*args, **kw)
-        p = expand_with_keys_plain(*args, **kw)
-        errs["expand_with_keys"] = max(
-            float((a.double() - b.double()).abs().max()) for a, b in zip(k, p))
-        if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(k, p)):
-            fails.append(f"{label}: K3 expand_with_keys is not bit-exact")
-    modes = [check_k1(label, mode, a, log, fails)
-             for mode, a in k1_calls_by_mode(calls).items()]
-    errs["rasterize_fwd"] = max(m["max_abs_err"] for m in modes)
+        # bit-exact outputs count as error 0 (rows past a call's pairs may
+        # hold the same NaN bits in both)
+        for args, kw in calls.get("pack_rows", []):
+            k, p = rt.pack_rows(*args, **kw), rt.pack_rows_plain(*args, **kw)
+            errs["pack_rows"] = errs.get("pack_rows", 0.0)
+            if not torch.equal(_bits(k), _bits(p)):
+                errs["pack_rows"] = max(errs["pack_rows"],
+                                        float((k - p).abs().max()))
+                fails.append(f"{label}: K4 pack of {len(args[0])} rows is "
+                             f"not bit-exact")
+        if "expand_with_keys" in calls:
+            args, kw = calls["expand_with_keys"][-1]
+            k = ex.expand_with_keys(*args, **kw)
+            p = ex.expand_with_keys_plain(*args, **kw)
+            errs["expand_with_keys"] = 0.0
+            if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(k, p)):
+                errs["expand_with_keys"] = max(
+                    float((a.double() - b.double()).abs().max())
+                    for a, b in zip(k, p))
+                fails.append(f"{label}: K3 expand_with_keys is not bit-exact")
+        if "expand_packed" in calls:  # rows up to `total`, keys everywhere
+            args, kw = calls["expand_packed"][-1]
+            k = ex.expand_packed_with_keys(*args, **kw)
+            p = ex.expand_packed_with_keys_plain(*args, **kw)
+            total = int(args[2].reshape(()))
+            errs["expand_packed"] = max(
+                float((k[0][:, :total] - p[0][:, :total]).abs().max()),
+                float((k[1] - p[1]).abs().max()),
+                float((k[2].double() - p[2].double()).abs().max()))
+            if not (torch.equal(_bits(k[0][:, :total]), _bits(p[0][:, :total]))
+                    and torch.equal(k[1], p[1])
+                    and torch.equal(_bits(k[2]), _bits(p[2]))):
+                fails.append(f"{label}: K3p expand_packed_with_keys is not "
+                             f"bit-exact")
+        if "rasterize_fwd_packed" in calls:
+            args, kw = calls["rasterize_fwd_packed"][-1]
+            k = rt.rasterize_forward_packed(*args, **kw)
+            p = rt.rasterize_forward_packed_plain(*args, **kw)
+            errs["rasterize_fwd_packed"] = max(
+                float((a - b).abs().max()) for a, b in zip(k, p))
+            mean = max(float((a - b).abs().mean()) for a, b in zip(k, p))
+            if errs["rasterize_fwd_packed"] > K1_MAX_ABS or mean > K1_MEAN_ABS:
+                fails.append(f"{label}: K5 rasterize_forward_packed disagrees "
+                             f"with plain")
+    if "rasterize_fwd" in calls:
+        modes = [check_k1(label, mode, a, log, fails)
+                 for mode, a in k1_calls_by_mode(calls).items()]
+        errs["rasterize_fwd"] = max(m["max_abs_err"] for m in modes)
     if "rasterize_bwd" in calls:
         row, f = compare_k2(calls, log)
         errs["rasterize_bwd"] = row["max_abs_err"]
         fails += f
-    log(f"{label}: K4/K3 exact, max |kernel - plain| {errs}")
+    log(f"{label}: K4/K3/K3p exact, max |kernel - plain| {errs}")
     return errs, fails
 
 
@@ -1686,6 +1813,347 @@ def grown_frame_phase(model, device, log):
              "launches": launches}, launches, errs, failures)
 
 
+# -------------------------------------------------------------------- cli
+def probe_packages(log):
+    """Which optional host packages import, and whether ffmpeg is on PATH
+    (the port's path must not depend on the answer)."""
+    import importlib
+    import shutil
+
+    found = {}
+    for name in ("cv2", "PIL", "yaml", "torchvision"):
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except Exception as exc:  # a probe: any import failure is "no"
+            found[name] = f"no ({type(exc).__name__})"
+    found["ffmpeg"] = shutil.which("ffmpeg") is not None
+    log("probe: " + ", ".join(f"{k} {'imports' if v is True else v}"
+                              if k != "ffmpeg" else
+                              f"ffmpeg {'on PATH' if v else 'not on PATH'}"
+                              for k, v in found.items()))
+    return found
+
+
+def _jax_curve():
+    """The JAX package's validation curve of config/synthetic_conv
+    (artifacts/r4_quality/scalars.jsonl): [(step, psnr, ssim)]."""
+    rows = {}
+    with open(CLI_JAX_CURVE) as f:
+        for line in f:
+            r = json.loads(line)
+            if r["key"] in ("val/psnr", "val/ssim"):
+                rows.setdefault(r["step"], {})[r["key"]] = r["val"]
+    return [(s, v.get("val/psnr"), v.get("val/ssim"))
+            for s, v in sorted(rows.items())]
+
+
+def cli_phase(log):
+    """The port's CLI on the config/synthetic_conv scene made on the card:
+    make_synthetic_scene, train (the full schedule, every step's and every
+    validation render's launches recorded), train again (resume-skip),
+    final_val, demo_interpolate and val. Returns (json, launches by
+    sub-phase and kind, calls by sub-phase and kind, held kernel errors,
+    failures). cv2,
+    PIL, PyYAML and torchvision are made unimportable for the phase, so
+    that it runs as on a machine without them."""
+    import os
+    import shutil
+
+    failures = []
+    for d in (CLI_SCENE, os.path.dirname(CLI_EXP)):
+        shutil.rmtree(d, ignore_errors=True)
+    out = {"probe": probe_packages(log), "phase_s": {}}
+    # the port's path must not need them: importing one raises from here on
+    names = set(CLI_BLOCKED) | {m for m in sys.modules
+                                if m.split(".")[0] in CLI_BLOCKED}
+    saved = {name: sys.modules.get(name) for name in names}
+    sys.modules.update(dict.fromkeys(names))
+    log(f"cli: imports of {', '.join(CLI_BLOCKED)} blocked")
+    try:
+        return _cli_phase(log, out, failures)
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                del sys.modules[name]
+            else:
+                sys.modules[name] = mod
+
+
+def _cli_phase(log, out, failures):
+    import os
+
+    import torch
+
+    from log_tpu_torch.apps import final_val, make_synthetic_scene, train
+    from log_tpu_torch.model.level_of_gaussian import LoG
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+    from log_tpu_torch.utils.trainer import Trainer
+
+    _, out["phase_s"]["scene"] = timed(
+        lambda: make_synthetic_scene.main(CLI_SCENE_ARGS))
+    log(f"cli scene: {' '.join(CLI_SCENE_ARGS)} in "
+        f"{out['phase_s']['scene']:.2f} s")
+
+    # every step, make_validation (training's and final_val's), render_one
+    # and eval-mode frame (the init pass's, the demo's and val's) with its
+    # launches, by sub-phase; the calls held against the plain versions
+    # after the run, by label (copies, which later calls cannot overwrite)
+    steps, vals, renders, frames, stage_t0 = [], [], [], [], {}
+    held_calls = {}
+    where = {"sub": "train"}
+    # --profile: PROFILE_STEPS steps of the tree stage under torch.profiler
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if PROFILE else None
+    real_step, real_val = Trainer.training_step, Trainer.make_validation
+    real_one, real_stage = NaiveRendererAndLoss.render_one, LoG.set_stage
+    real_vis = NaiveRendererAndLoss.vis
+
+    def ran_since(before):
+        return {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+
+    def step(self, model, data):
+        if PROFILE and len(steps) == CLI_PROFILE_AT:
+            torch.cuda.synchronize()
+            prof.start()
+        # the first step of each stage after a densify changed the points
+        prev = steps[-1] if steps else None
+        label = f"cli {model.stage_name} step after a densify"
+        hold = (prev is not None and prev["stage"] == model.stage_name
+                and prev["points"] != model.num_points
+                and label not in held_calls)
+        calls = held_calls.setdefault(label, {}) if hold else None
+        before = dict(kernels.LAUNCHES)
+        with recording(calls, copy=True) if hold else contextlib.nullcontext():
+            (ok, output, loss), s = timed(lambda: real_step(self, model, data))
+        if PROFILE and len(steps) == CLI_PROFILE_AT + PROFILE_STEPS - 1:
+            prof.stop()
+        steps.append({"sub": where["sub"], "stage": model.stage_name,
+                      "ms": s * 1e3, "loss": float(output["loss_dev"]),
+                      "points": model.num_points, "ran": ran_since(before)})
+        return ok, output, loss
+
+    def one(self, model, camera, background):
+        label = f"cli {where['sub']} validation render"
+        hold = label not in held_calls
+        calls = {}
+        before = dict(kernels.LAUNCHES)
+        with recording(calls, copy=hold):
+            res = real_one(self, model, camera, background)
+        if hold:
+            held_calls[label] = calls
+        renders.append({
+            "sub": where["sub"], "ran": ran_since(before),
+            "k1_modes": [a[6] for a, _ in calls.get("rasterize_fwd", [])]})
+        return res
+
+    def frame(self, batch, model, background=None):
+        if getattr(model, "training", False):  # through render_one
+            return real_vis(self, batch, model, background)
+        sub = where["sub"]
+        n = sum(f["sub"] == sub for f in frames)
+        hold = n == CLI_HELD_FRAME.get(sub)
+        calls = held_calls.setdefault(f"cli {sub} frame {n}", {}) \
+            if hold else None
+        before = dict(kernels.LAUNCHES)
+        with recording(calls, copy=True) if hold else contextlib.nullcontext():
+            res = real_vis(self, batch, model, background)
+        frames.append({"sub": sub, "ran": ran_since(before)})
+        return res
+
+    def val(self, iteration, visualize=False):
+        # a validation view: its prepare_from_camera (the cull render) and
+        # its render_one
+        before, n = dict(kernels.LAUNCHES), len(renders)
+        rec, s = timed(lambda: real_val(self, iteration, visualize))
+        vals.append(dict(rec, s=s, stage=self.model.stage_name,
+                         sub=where["sub"], ran=ran_since(before),
+                         views=len(renders) - n))
+        return rec
+
+    def set_stage(self, stage_name):
+        stage_t0[stage_name] = time.perf_counter()
+        return real_stage(self, stage_name)
+
+    launches, n_calls = {}, {}
+
+    def run(sub, fn):
+        """fn() as sub-phase `sub`: its launches split into those of its
+        steps, validation views and frames (n_calls counted in this run)
+        and any outside them."""
+        where["sub"] = sub
+        kernels.reset_launches()
+        res, s = timed(fn)
+        total = dict(kernels.LAUNCHES)
+        counted = dict.fromkeys(total, 0)
+        for kind, rows in (("steps", steps), ("views", vals),
+                           ("frames", frames)):
+            rows = [x for x in rows if x["sub"] == sub]
+            if rows:
+                ran = {k: sum(x["ran"][k] for x in rows) for k in total}
+                launches[f"cli_{sub}_{kind}"] = ran
+                n_calls[f"cli_{sub}_{kind}"] = sum(x.get("views", 1)
+                                                   for x in rows)
+                counted = {k: counted[k] + ran[k] for k in total}
+        other = {k: total[k] - counted[k] for k in total}
+        if any(other.values()):
+            launches[f"cli_{sub}_other"] = other
+        log(f"cli {sub}: launches by kind "
+            + "; ".join(f"{key[len(sub) + 5:]} {launches[key]} in "
+                        f"{n_calls.get(key, 'no counted')} calls"
+                        for key in launches if key.startswith(f"cli_{sub}_")))
+        return res, s
+
+    argv = ["--cfg", CLI_CFG, "split"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = os.path.join(CLI_EXP, "model_tree_full.pth")
+    with patched(Trainer, {"training_step": step, "make_validation": val}), \
+            patched(NaiveRendererAndLoss, {"render_one": one, "vis": frame}), \
+            patched(LoG, {"set_stage": set_stage}):
+        trainer, train_s = run("train", lambda: train.main(
+            argv + ["train"] + CLI_OPTS))
+        t_end = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated()
+        trainer2, resume_s = run("resume", lambda: train.main(
+            argv + ["train"] + CLI_OPTS))
+        n_resumed = sum(x["sub"] == "resume" for x in steps)
+        resumed_points = trainer2.model.num_points
+        trained_points = trainer.model.num_points
+        trained_depth = int(trainer.model.tree.depth.max())
+        del trainer, trainer2
+        torch.cuda.empty_cache()
+        # final-val, then the demo and val splits of the last checkpoint
+        record, fv_s = run("final_val", lambda: final_val.main(
+            [CLI_CFG, ckpt] + CLI_OPTS))
+        demo_ms, demo_s = run("demo", lambda: train.main(
+            argv + ["demo_interpolate", "ckptname", ckpt] + CLI_DEMO_OPTS
+            + CLI_OPTS))
+        val_ms, val_s = run("val", lambda: train.main(
+            argv + ["val", "ckptname", ckpt] + CLI_OPTS))
+    out["phase_s"].update(train=train_s, resume=resume_s, final_val=fv_s,
+                          demo=demo_s, val=val_s)
+    stages = list(stage_t0)
+    bounds = [stage_t0[s] for s in stages] + [t_end]
+    stage_s = {s: bounds[i + 1] - bounds[i] for i, s in enumerate(stages)}
+    train_steps = [x for x in steps if x["sub"] == "train"]
+    by_stage = {s: [x for x in train_steps if x["stage"] == s]
+                for s in stages}
+    step_ms = [x["ms"] for x in train_steps]
+    log(f"cli train: {len(train_steps)} steps in {train_s:.2f} s, stages "
+        + ", ".join(f"{s} {len(by_stage[s])} steps {stage_s[s]:.2f} s (step "
+                    f"median {np.median([x['ms'] for x in by_stage[s]]):.2f} "
+                    f"ms)" for s in stages)
+        + f"; step median {np.median(step_ms):.3f} ms; peak memory "
+        f"{peak / 2**30:.3f} GiB; {trained_points} points, depth "
+        f"{trained_depth}")
+    if PROFILE:
+        window = steps[CLI_PROFILE_AT:CLI_PROFILE_AT + PROFILE_STEPS]
+        report_profile("cli_train", prof, PROFILE_STEPS,
+                       float(np.median([x["ms"] for x in by_stage["tree"]])),
+                       log, ranges=True)
+        log(f"  profiled steps: {window[0]['stage']} stage, "
+            f"{window[0]['points']} points, "
+            + " ".join(f"{x['ms']:.1f}" for x in window) + " ms")
+    for v in vals:
+        log(f"  val at {v['iteration']} ({v['sub']}, {v['stage']}): psnr "
+            f"{v['psnr']:.3f} "
+            f"ssim {v['ssim']:.4f} l1 {v['l1']:.4f}, {v['num_points']} "
+            f"points, {v['s']:.2f} s")
+    log("  JAX package's curve (artifacts/r4_quality, .jpg scene, step: "
+        "psnr/ssim): "
+        + ", ".join(f"{s}: {p:.2f}/{q:.4f}" for s, p, q in _jax_curve()))
+    missing = [(i, x["stage"], x["ran"]) for i, x in enumerate(train_steps)
+               if min(x["ran"][k] for k in STEP_KERNELS) < 1]
+    if missing:
+        failures.append(f"cli train: steps without every kernel: "
+                        f"{missing[:4]}")
+    bad_renders = [r for r in renders
+                   if min(r["ran"][k] for k in SERVING_KERNELS) < 1
+                   or set(r["k1_modes"]) != {False}]
+    if not renders or bad_renders:
+        failures.append(f"cli validation renders without K4/K3/K1 "
+                        f"(with_stats=False): {bad_renders[:2]} of "
+                        f"{len(renders)}")
+    for s in ("init", "tree"):
+        losses = [x["loss"] for x in by_stage.get(s, [])]
+        first = float(np.mean(losses[:CLI_LOSS_WINDOW]))
+        last = float(np.mean(losses[-CLI_LOSS_WINDOW:]))
+        out[f"{s}_loss_first_last"] = [first, last]
+        log(f"cli {s}: mean loss first {CLI_LOSS_WINDOW} steps {first:.5f}, "
+            f"last {CLI_LOSS_WINDOW} {last:.5f}")
+        if not (len(losses) >= 2 * CLI_LOSS_WINDOW and last < first):
+            failures.append(f"cli {s}: loss did not fall ({first} -> {last})")
+    if not vals or any(set(CLI_VAL_KEYS) - set(v) for v in vals):
+        failures.append("cli: validation records without their keys")
+    ckpts = [os.path.join(CLI_EXP, f"model_{s}{w}.pth")
+             for s in ("init", "tree", "tree_full") for w in ("", "_wotrain")]
+    if not all(os.path.exists(c) for c in ckpts):
+        failures.append(f"cli: stage checkpoints missing: "
+                        f"{[c for c in ckpts if not os.path.exists(c)]}")
+    log(f"cli resume: {resume_s:.2f} s, {n_resumed} steps, {resumed_points} "
+        f"points (trained {trained_points})")
+    if n_resumed or resumed_points != trained_points:
+        failures.append(f"cli resume-skip took {n_resumed} steps")
+
+    log(f"cli final-val: psnr {record['psnr']:.3f} ssim {record['ssim']:.4f} "
+        f"l1 {record['l1']:.4f}, {record['num_points']} points (JAX package "
+        f"on the .jpg scene {CLI_JAX_FINAL})")
+    if record["psnr"] < CLI_MIN_PSNR or record["ssim"] < CLI_MIN_SSIM:
+        failures.append(f"cli final-val below {CLI_MIN_PSNR} dB / "
+                        f"{CLI_MIN_SSIM}: {record}")
+    # .png frames: no JPEG encoder imports in this phase
+    demo_files = os.listdir(os.path.join(CLI_EXP, "demo_interpolate", "rgb"))
+    demo_launches = launches.get("cli_demo_frames", {})
+    log(f"cli demo_interpolate: {len(demo_files)} frames, average frame "
+        f"{demo_ms:.3f} ms (K3p launches only where the slice bucket is a "
+        f"multiple of 32768)")
+    if len(demo_files) != CLI_DEMO_FRAMES or n_calls.get("cli_demo_frames") \
+            != CLI_DEMO_FRAMES + min(CLI_DEMO_WARMUP, CLI_DEMO_FRAMES):
+        failures.append(f"cli demo wrote {len(demo_files)} frames in "
+                        f"{n_calls.get('cli_demo_frames')} renders")
+    if min(demo_launches.get(k, 0) for k in CLI_DEMO_KERNELS) < 1:
+        failures.append(f"cli demo did not launch {CLI_DEMO_KERNELS}")
+    dumps = {d: len(os.listdir(os.path.join(CLI_EXP, "test", "scale_1", d)))
+             for d in ("gt", "renders")}
+    log(f"cli val: {dumps} at scale 1, frame ms {val_ms}")
+    if dumps != {"gt": 3, "renders": 3} or n_calls.get("cli_val_frames") != 3:
+        failures.append(f"cli val dumps: {dumps} from "
+                        f"{n_calls.get('cli_val_frames')} renders")
+
+    # the recorded steps, renders and frames against the plain versions
+    errs = {}
+    want = [f"cli {s} step after a densify" for s in ("init", "tree")] + [
+        "cli train validation render", "cli final_val validation render",
+        f"cli demo frame {CLI_HELD_FRAME['demo']}",
+        f"cli val frame {CLI_HELD_FRAME['val']}"]
+    if set(want) - set(held_calls):
+        failures.append(f"cli: no calls recorded for "
+                        f"{sorted(set(want) - set(held_calls))}")
+    for label, calls in held_calls.items():
+        e, f = hold_calls(calls, label, log)
+        failures += f
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    held_kernels = sorted(errs)
+    log(f"cli: kernels held against their plain versions on this path's "
+        f"calls: {held_kernels}")
+    del held_calls
+    out.update(
+        steps=len(step_ms), step_ms_median=float(np.median(step_ms)),
+        stage_s=stage_s,
+        stage_step_ms_median={s: float(np.median([x["ms"] for x in v]))
+                              for s, v in by_stage.items()},
+        peak_bytes=peak, points=record["num_points"], vals=vals,
+        final_val=record, demo_frame_ms=demo_ms, demo_frames=len(demo_files),
+        val_frame_ms=val_ms, launches=launches, calls=n_calls,
+        val_renders=sum(r["sub"] == "train" for r in renders),
+        jax_final=CLI_JAX_FINAL)
+    return out, launches, n_calls, errs, failures
+
+
 def main() -> int:
     import torch
 
@@ -1847,6 +2315,9 @@ def main() -> int:
         model, device, log)
     failures += ffail
     del model
+    torch.cuda.empty_cache()
+    cli_json, cli_launches, cli_calls, held["cli"], cfail = cli_phase(log)
+    failures += cfail
 
     log(json.dumps({
         "slice": slice_json,
@@ -1856,15 +2327,16 @@ def main() -> int:
                   "steps": steps, "peak_bytes": t_peak,
                   "launches": t_launches, "step0_replay": replay},
         "growth": growth_json, "two_stage": two_json,
-        "grown_frame": frame_json,
+        "grown_frame": frame_json, "cli": cli_json,
     }))
     kernels_json = []
     runs = dict(serve_runs, train=t_launches, growth=g_launches,
-                two_stage=ts_launches, grown_frame=gf_launches)
-    # main-path calls per phase: frames, or training steps
+                two_stage=ts_launches, grown_frame=gf_launches, **cli_launches)
+    # main-path calls per phase: frames, training steps, or renders
     n_calls = dict({phase: FRAMES for phase in serve_runs},
                    train=TRAIN_STEPS, growth=GROWTH_STEPS,
-                   two_stage=len(two_json["steps"]), grown_frame=1)
+                   two_stage=len(two_json["steps"]), grown_frame=1,
+                   **cli_calls)
     # the growth phases' own calls held against the plain versions
     for phase, errs in held.items():
         for name, err in errs.items():
@@ -1877,7 +2349,8 @@ def main() -> int:
             "replaces": replaces, "launches": sum(by_phase.values()),
             "launches_by_phase": by_phase,
             "launches_per_call": {phase: n / n_calls[phase]
-                                  for phase, n in by_phase.items() if n},
+                                  for phase, n in by_phase.items()
+                                  if n and n_calls.get(phase)},
             "library_ms": None, "library_note": NO_LIBRARY_CALL[name],
             **rows[name]})
     if failures:

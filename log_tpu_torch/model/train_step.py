@@ -837,9 +837,12 @@ def _train_step_core(params: dict, moments: dict, counter: dict, keep_leaf,
     g_slices = dict(zip(leaves, grads[:len(leaves)]))
     g_offset, g_corr = grads[len(leaves):]
 
-    radii = out["radii"]
+    # the oracle's stats come out of differentiable ops: the counters keep
+    # values, not the render's graph
+    radii = out["radii"].detach()
     with record_function("train_step.counter"):
-        counter = update_counter(counter, index, radii, out["point_weight"],
+        counter = update_counter(counter, index, radii,
+                                 out["point_weight"].detach(),
                                  out["point_id_pixel"], g_offset,
                                  identity=identity_fast)
     flag_vis = radii > 0

@@ -1,11 +1,15 @@
 """Renderer; counterpart of log_tpu/render/renderer.py.
 
 `NaiveRendererAndLoss.vis` is the no-grad inference path of the demo, val
-and viewer splits: one `LoG.render_fused` frame per camera of the batch.
-`prepare_camera(is_train=True)` gives the training step its camera and its
-background (random under `use_randback`); the loss itself runs inside the
-training step (model/train_step.py). `render_one` and the depth branch are
-ROADMAP queue 1.2b.
+and overlook renders: one `LoG.render_fused` frame per camera for a model in
+eval mode, and for a model in training mode the two-phase render
+(`LoG.prepare_from_camera`, then `render_one`). `render_one` renders the
+prepared LoD cut with `rasterize_tiled(with_stats=False)` (or the oracle
+where the backend is "reference"); validation calls it. `prepare_camera`
+gives the training step its camera and its background (random under
+`use_randback`, drawn from the caller's numpy Generator); the loss runs
+inside the training step (model/train_step.py). `MaskForeground` crops
+validation to the mask's box. The depth render is ROADMAP queue 1, item 6.
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ from collections import defaultdict
 
 import numpy as np
 import torch
+
+from ..utils import image_io
 
 CAMERA_KEYS = (
     "camera_center",
@@ -56,12 +62,20 @@ class BaseRender:
     """Static visualization helpers."""
 
     @staticmethod
+    def float32_to_uint8(array):
+        return np.clip(array * 255, 0, 255).astype(np.uint8)
+
+    @staticmethod
     def tensor_to_bgr(tensor):
         if isinstance(tensor, torch.Tensor):
             tensor = tensor.detach().cpu().numpy()
         vis = np.asarray(tensor).transpose(1, 2, 0)
         vis = (np.clip(vis[:, :, ::-1], 0.0, 1.0) * 255).astype(np.uint8)
         return np.ascontiguousarray(vis)
+
+    @staticmethod
+    def make_video(path, remove_image=False, fps=30):
+        image_io.make_video(path, fps)
 
 
 class NaiveRendererAndLoss(BaseRender):
@@ -72,13 +86,14 @@ class NaiveRendererAndLoss(BaseRender):
                  use_origin_render=False, render_depth=False, device="cuda"):
         # use_rand_radius: the trainer jitters the LoD pixel threshold per
         # step; use_origin_render selects the Inria dilation for the
-        # two-phase render (queue 1.2b); the fused frame and the training
-        # step render in 'antialias' mode, as in the JAX package
+        # two-phase render; the fused frame and the training step render in
+        # 'antialias' mode, as in the JAX package
         self.split = split
         self.device = torch.device(device)
         self.use_randback = use_randback
         self.use_rand_radius = use_rand_radius
         self.mode = "original" if use_origin_render else "antialias"
+        self.use_origin_render = use_origin_render
         self.iteration = 0
         self.render_depth = render_depth
         self.background = np.asarray(background, np.float32)
@@ -91,33 +106,79 @@ class NaiveRendererAndLoss(BaseRender):
             self.background = np.asarray(background, np.float32)
 
     def prepare_camera(self, batch, bn, background=None, is_train=False,
-                       generator: torch.Generator | None = None):
-        """Camera bn of the batch, and its background (random in [0, 1)
-        from `generator` for training with use_randback)."""
+                       rng: np.random.Generator | None = None):
+        """Camera bn of the batch, and its background: for training with
+        use_randback three uniform draws from `rng` (the trainer's
+        Generator), else the renderer's."""
         camera = {key: np.asarray(batch["camera"][key])[bn]
                   for key in CAMERA_KEYS}
         if background is None:
             if is_train and self.use_randback:
-                background = torch.rand(3, generator=generator).numpy()
+                if rng is None:
+                    raise ValueError("a random background needs the caller's "
+                                     "numpy Generator (rng)")
+                background = rng.random(3).astype(np.float32)
             else:
                 background = self.background
         return camera, np.asarray(background, np.float32)
 
+    # ------------------------------------------------------------ inference
+    @torch.no_grad()
+    def render_one(self, model, camera, background):
+        """Render of the LoD cut that `model.prepare_from_camera(camera)`
+        left in `model.visibility_flag`. Returns device tensors ('render'
+        (3, H, W), 'alpha' (H, W), ...)."""
+        from ..ops import pick_backend, pick_max_pairs, rasterize_ref
+
+        cam = camera_device(camera, model.device)
+        vf = model.visibility_flag
+        params = model.gaussian.params()
+        act = model.gaussian.activation
+        colors = act.colors_activation(params, cam["camera_center"],
+                                       model.gaussian.active_sh_degree)
+        kwargs = dict(
+            xyz=params["xyz"], colors=colors,
+            opacity=act.opacity_activation(params["opacity"][:, 0]),
+            scaling=act.scaling_activation(params["scaling"]),
+            rotation=act.rotation_activation(params["rotation"]),
+            means2d_offset=torch.zeros_like(params["xyz"][:, :2]),
+            world_view=cam["world_view"], full_proj=cam["full_proj"],
+            focal_x=cam["focal_x"], focal_y=cam["focal_y"],
+            tan_fovx=cam["tan_fovx"], tan_fovy=cam["tan_fovy"],
+            background=torch.as_tensor(np.asarray(background, np.float32),
+                                       device=model.device),
+            image_height=cam["image_height"], image_width=cam["image_width"],
+            active_mask=vf["keep_mask"], mode=self.mode, use_filter=False,
+        )
+        # the pair budget from the prepared cut's kept count
+        k_budget = max(int(vf["counts"][0]) + int(vf["counts"][1]), 1)
+        if pick_backend(model.capacity, model.device) == "tiled":
+            from ..ops.rasterize_tiled import rasterize_tiled
+
+            return rasterize_tiled(**kwargs,
+                                   max_pairs=pick_max_pairs(k_budget),
+                                   with_stats=False)
+        return rasterize_ref.rasterize(**kwargs)
+
     @torch.no_grad()
     def vis(self, batch, model, background=None):
-        """Batch inference: one fused frame per camera. Returns host arrays
-        'render' (B, 3, H, W), 'alpha' and 'mask' (B, H, W), quantized to
-        8 bits on the device like the JAX package."""
-        if self.render_depth or getattr(model, "training", False):
-            raise NotImplementedError(
-                "the two-phase render (depth maps, training-mode models) "
-                "is ROADMAP queue 1.2b; call model.eval() first"
-            )
+        """Batch inference: per camera, one fused frame (eval mode) or the
+        two-phase render (training mode). Returns host arrays 'render'
+        (B, 3, H, W), 'alpha' and 'mask' (B, H, W), quantized to 8 bits on
+        the device like the JAX package."""
+        if self.render_depth:
+            raise NotImplementedError("the depth render is ROADMAP queue 1, "
+                                      "item 6")
         preds = defaultdict(list)
         B = np.asarray(batch["camera"]["camera_center"]).shape[0]
+        fused = not getattr(model, "training", False)
         for bn in range(B):
             camera, bg = self.prepare_camera(batch, bn, background)
-            out = model.render_fused(camera, bg)
+            if fused:
+                out = model.render_fused(camera, bg)
+            else:
+                model.prepare_from_camera(camera)
+                out = self.render_one(model, camera, bg)
             ren8 = (torch.clamp(out["render"], 0, 1) * 255).to(torch.uint8)
             alp8 = (torch.clamp(out["alpha"], 0, 1) * 255).to(torch.uint8)
             preds["render"].append(ren8.cpu().numpy().astype(np.float32) / 255.0)
@@ -125,3 +186,41 @@ class NaiveRendererAndLoss(BaseRender):
             preds["alpha"].append(alpha)
             preds["mask"].append(alpha)
         return {key: np.stack(val) for key, val in preds.items()}
+
+    def process_gt(self, batch):
+        img = np.asarray(batch["image"])
+        return img.transpose(0, 3, 1, 2)
+
+    def process_pred(self, batch, pred):
+        return pred
+
+
+class MaskForeground(NaiveRendererAndLoss):
+    """Object-centric variant: validation crops the render and the GT to the
+    mask's box and composites the background into the GT; training
+    restricts the loss to the padded mask box inside the step (the trainer
+    passes the batch mask through when `foreground_crop` is set)."""
+
+    foreground_crop = True
+
+    @staticmethod
+    def bound_from_mask(msk, padding):
+        msk_hw = msk[0, :, :, 0] > 0.5
+        cols = np.where(msk_hw.any(axis=0))[0]
+        rows = np.where(msk_hw.any(axis=1))[0]
+        l, r = max(cols[0] - padding, 0), cols[-1] + padding
+        t, b = max(rows[0] - padding, 0), rows[-1] + padding
+        return int(l), int(t), int(r), int(b)
+
+    def process_gt(self, batch):
+        msk = np.asarray(batch["mask"])[..., None]
+        l, t, r, b = self.bound_from_mask(msk, padding=0)
+        gt = np.asarray(batch["image"])
+        gt = gt * msk + (1 - msk) * self.background[None, None, None]
+        gt = gt[:, t:b + 1, l:r + 1]
+        return gt.transpose(0, 3, 1, 2)
+
+    def process_pred(self, batch, pred):
+        msk = np.asarray(batch["mask"])[..., None]
+        l, t, r, b = self.bound_from_mask(msk, padding=0)
+        return pred[:, t:b + 1, l:r + 1]

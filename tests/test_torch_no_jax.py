@@ -1,8 +1,10 @@
 """log_tpu_torch must stand without JAX: the GPU machine has none.
 
 Every module of the package is imported in a fresh interpreter, which must
-then hold neither `jax` nor `log_tpu` in sys.modules. The package must also
-import without nvcc or a GPU (kernels build at first launch only).
+then hold neither `jax` nor `log_tpu` in sys.modules, nor the optional host
+packages `cv2`, `PIL` and `yaml` (imported only inside the JPEG and video
+branches of utils/image_io.py). The package must also import without nvcc
+or a GPU (kernels build at first launch only).
 """
 import pkgutil
 import subprocess
@@ -25,12 +27,14 @@ def test_package_imports_without_jax():
     names = _modules()
     assert "log_tpu_torch.ops.rasterize_tiled" in names
     assert "log_tpu_torch.model.level_of_gaussian" in names
+    assert "log_tpu_torch.apps.train" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'log_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'log_tpu', 'cv2',\n"
+        "                                    'PIL', 'yaml'))\n"
         "assert not bad, bad\n"
         "from log_tpu_torch.ops import kernels\n"
         "assert kernels._lib is None\n"

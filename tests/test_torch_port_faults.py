@@ -3,6 +3,7 @@ override is read first (also on a CUDA device), the oracle recomputes each
 chunk in its backward instead of keeping its (chunk, H*W) intermediates,
 and the trainer's GT device cache starts off."""
 import math
+import os
 
 import numpy as np
 import pytest
@@ -122,3 +123,86 @@ def test_trainer_gt_cache_starts_off():
     assert trainer._gt_cache_bytes == gt.nbytes
     trainer.set_gt_cache(False)
     assert trainer._gt_dev_cache == {} and trainer._gt_cache_bytes == 0
+
+
+# -------------------------------------------- F4: the trainer's host draws
+def _draws(trainer, renderer, n=50):
+    """What fit and training_step draw, in their order: a loader's sampler
+    order (its seed drawn from the trainer), then per step the random
+    background and the random LoD pixel threshold."""
+    out = []
+    dataset = list(range(7))
+    batch = {"camera": {k: np.zeros((1, 3)) for k in (
+        "camera_center", "world_view_transform", "full_proj_transform",
+        "image_width", "image_height", "FoVx", "FoVy", "K", "R", "T")}}
+    loader = trainer.train_loader(dataset, {"batch_size": 1,
+                                            "iterations": n}, base_iter=1)
+    out.append(list(loader.sampler))
+    for _ in range(n):
+        _cam, bg = renderer.prepare_camera(batch, 0, None, is_train=True,
+                                           rng=trainer.rng)
+        out.append(bg.tolist())
+        out.append(trainer._rand_radius_jitter())
+    return out
+
+
+def test_trainer_draws_match_jax(tmp_path):
+    """One seed gives the JAX package's sampler indices, backgrounds and
+    LoD thresholds, 50 draws each (one numpy Generator, seeded 666)."""
+    from log_tpu.render.renderer import NaiveRendererAndLoss as RendererJax
+    from log_tpu.utils.config import CfgNode
+    from log_tpu.utils.trainer import Trainer as TrainerJax
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+
+    jax_trainer = TrainerJax(CfgNode({"exp": str(tmp_path / "jax")}), None,
+                             None, logdir=str(tmp_path / "jax"))
+    want = _draws(jax_trainer, RendererJax(use_randback=True))
+    os.close(jax_trainer._exp_lock_fd)
+    renderer = NaiveRendererAndLoss(use_randback=True, device="cpu")
+    got = _draws(Trainer({}, _Model(), renderer), renderer)
+    assert got == want
+    assert len(set(map(str, got[1::2]))) == 50  # the draws move
+
+
+# ------------------------- F5: the oracle step's stats stay out of autograd
+def test_oracle_step_counters_hold_values(monkeypatch):
+    """On the reference backend (the CPU's default up to 16,384 points)
+    the step's radii and per-gaussian weights come out of differentiable
+    ops; the counters keep their values, not the render's graph, so a
+    checkpoint can be written after the step."""
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+    from log_tpu_torch.utils.config import load_object
+    from log_tpu_torch.utils.synth_tree import build_checkpoint
+
+    monkeypatch.setenv("LOG_TPU_BACKEND", "reference")
+    keys = ["xyz", "colors", "scaling", "opacity", "rotation", "shs"]
+    args = {"gaussian": {"xyz_scale": 1.0, "sh_degree": 1},
+            "optimizer": {"optimize_keys": keys, "opt_all_levels": True,
+                          "lr_dict": {"xyz": 1.6e-4, "colors": 2.5e-3,
+                                      "shs": 1.25e-4, "scaling": 5e-3,
+                                      "opacity": 0.05, "rotation": 1e-3,
+                                      "max_steps": 600}},
+            "tree": {"max_child": 4}, "densify_and_remove": {}}
+    model = load_object("LoG.model.level_of_gaussian.LoG", args, device="cpu")
+    model.load_state_dict(build_checkpoint(200, seed=3))
+    model.training_setup()
+    pos = np.array([0.0, -22.0, 18.0])
+    fwd = -pos / np.linalg.norm(pos)
+    right = np.cross(fwd, [0, 0, 1.0])
+    right /= np.linalg.norm(right)
+    R = np.stack([right, np.cross(fwd, right), fwd])
+    h, w = 24, 40
+    pc = prepare_camera({"K": np.array([[30.0, 0, w / 2], [0, 30.0, h / 2],
+                                        [0, 0, 1]]),
+                         "R": R, "T": (-R @ pos).reshape(3, 1), "H": h,
+                         "W": w, "center": pos.reshape(3, 1)}, 1, 0.01, 1000.0)
+    keys = ("camera_center", "world_view_transform", "full_proj_transform",
+            "image_width", "image_height", "FoVx", "FoVy", "K", "R", "T")
+    batch = {"camera": {k: np.asarray(pc[k])[None] for k in keys},
+             "image": np.random.default_rng(0).uniform(size=(1, h, w, 3)),
+             "index": np.asarray([0])}
+    renderer = NaiveRendererAndLoss(device="cpu")
+    Trainer({}, model, renderer).training_step(model, batch)
+    assert not any(v.requires_grad for v in model.counter.data.values())
+    assert float(model.counter.data["weights_max"].max()) > 0
+    assert model.state_dict()["counter.weights_max"].shape == (model.num_points,)
