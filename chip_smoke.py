@@ -67,6 +67,28 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    params, moments and counters to 1e-5 / 1e-6); then 4 more steps (K2
    once per step, K1 at least twice, the state finite), step 0's kernel
    calls held against the plain versions;
+   then, on a fresh copy of the training tree:
+   a. depth_step: GT frames and GT depth maps of the unperturbed tree
+      (NaiveRendererAndLoss.vis with render_depth: the inverse depth,
+      normalized and quantized to 16 bits as a DepthDataset map reads), the
+      same perturbation, 24 steps of Trainer.training_step with
+      render_depth (a second render of (camera depth, world z, 1) through
+      K4, K3, K1 without stats, and K2 in the backward); step 0's kernel
+      calls (copies) held against the plain versions right after it (K1's
+      three modes, both K2 calls) and step 0 replayed with every kernel
+      plain; every step must launch K2 twice and K1, K3, K4 at least
+      twice, the depth term and the state stay finite, the loss of the
+      last 8 steps must be below that of the first 8; the timed window
+      and the peak are steps 1-23;
+   b. spill: from the snapshot taken before a.'s first step, 12 steps
+      (prepare_from_camera + LoG.train_step, LOG_TPU_IDENTITY_STEP=0, fixed
+      backgrounds) on the device path, then the same 12 with both moment
+      kinds spilled by maybe_spill into pinned host memory: parameters,
+      moments and counters equal bit for bit (else held at rtol 1e-5, atol
+      2e-6), the host gather's index the step's own, the peak device memory
+      (utils/hbm.call_stats) lower by at least 90% of the moments' bytes;
+      then a host-path update_depth_stage of the spilled model (the host
+      moments at the new capacity, still pinned) and 2 more steps;
 10. two stages: the scene's 600k roots written as a PLY (write_ply) and
    loaded through GaussianPoint(init_ply=...) (init_opacity 0.1), the init
    pass over the 4 views at scale 4, then stages init (4 x 20 steps at
@@ -100,7 +122,19 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    their own inputs: the first step after a densify in init and in tree
    (K4, K3, K1 cull and full stats, K2), the first validation render of
    training and of final_val, the demo's first timed frame (K4, K3, K1,
-   K5, and K3p where it ran) and val's first frame.
+   K5, and K3p where it ran) and val's first frame;
+13. cli_depth: 16-bit inverse-depth maps of the cli scene's views at its
+   scale 4 (64x80), rendered by the oracle from the scene's generator
+   Gaussians; the same schedule through log_tpu_torch.apps.train with
+   config/example/test/train_wdepth.yml's overrides (dataset.module
+   DepthDataset, depth_scale 4, render_depth True) under
+   output/chip_cli_depth: every step must have a finite depth term and
+   launch K2 twice and K1, K3, K4 at least twice, the loss of init and
+   tree must fall; final_val (at least 20 dB / 0.8, beside the plain cli
+   run's); demo_interpolate with render_type depth and then height (60
+   frames, none constant, the first equal to marigold_depth_vis of vis's
+   map); the first tree step after a densify held against the plain
+   versions (K1 without stats and both K2 calls among them).
 With --profile, 4 more frames of the generic, flat_slice and block phases
 and 4 more training steps run under torch.profiler, each after its timed
 run, and 4 steps of the cli run's tree stage (steps 600-603) are traced in
@@ -176,6 +210,12 @@ K2_REL_TOL = 1e-3
 # and the loss
 STEP_GRAD_REL_TOL = 1e-3
 STEP_LOSS_TOL = 1e-4
+# the same with render_depth: the depth term's gradient passes through
+# 1 / (depth + 1e-5) and the closed-form scale-and-shift fit, whose
+# determinant cancels (ROADMAP fact ae), so K1's sequential rounding
+# (1.4e-4 on depths up to 32) reaches the per-gaussian gradients amplified
+# (xyz 1.38e-3 of its largest on an H100 at 700 W; 7.9e-4 without depth)
+DEPTH_STEP_GRAD_REL_TOL = 5e-3
 KERNEL_SOURCES = {
     "pack_rows": ("log_tpu_torch/csrc/pack.cu",
                   "log_tpu/ops/rasterize_tiled.py:265"),
@@ -266,6 +306,30 @@ CLI_BLOCKED = ("cv2", "PIL", "yaml", "torchvision")
 CLI_PROFILE_AT = 600
 # host path against device path after one densify (tests/test_densify_device.py)
 DENSIFY_RTOL, DENSIFY_ATOL = 1e-5, 1e-6
+# depth_step: the training phase's tree and views with a depth map per view
+# (the unperturbed tree's inverse depth, 16-bit) and render_depth on; the
+# loss of the first and the last DEPTH_LOSS_WINDOW steps
+DEPTH_STEPS, DEPTH_LOSS_WINDOW = 24, 8
+# spill: SPILL_STEPS steps on the device path and again with both moment
+# kinds in pinned host memory, from one snapshot; equal bit for bit, else
+# held at tests/test_spill.py's tolerances; the spilled run's peak at
+# least SPILL_MEMORY_SHARE of the moments' bytes under the device run's;
+# then a host-path densify and SPILL_AFTER_DENSIFY more steps
+SPILL_STEPS, SPILL_AFTER_DENSIFY = 12, 2
+SPILL_RTOL, SPILL_ATOL = 1e-5, 2e-6
+SPILL_MEMORY_SHARE = 0.9
+# cli_depth: the cli scene with 16-bit inverse-depth maps at the coarsest
+# scale (as config/example/test/train_wdepth.yml takes its scale 8 of
+# [1, 2, 4, 8]); the overrides reach train.dataset and train.render
+# through their $dataset and $RGB_RENDER_L1_SSIM substitution
+CLI_DEPTH_EXP = "output/chip_cli_depth/log"
+CLI_DEPTH_SCALE = 4
+CLI_DEPTH_OPTS = ["dataset.module", "LoG.dataset.colmap.DepthDataset",
+                  "dataset.args.depth_scale", str(CLI_DEPTH_SCALE),
+                  "RGB_RENDER_L1_SSIM.args.render_depth", "True"]
+# the demo's depth and height maps normalized over the scene's range (its
+# Gaussians lie in [-1, 1]^3, the cameras 4 from the center)
+CLI_DEPTH_RANGES = {"depth": (2.0, 6.0), "height": (-1.0, 1.0)}
 
 
 def make_cam(theta, height=18.0, radius=22.0, h=H, w=W, focal=1400.0):
@@ -1046,11 +1110,16 @@ def render_ground_truth(model, batches, log):
 
 def make_ground_truth(model, batches, device, log):
     """GT frames of the unperturbed tree (render_ground_truth); then the
-    colors and opacities of the live points are perturbed from a seeded
+    colors and opacities of the live points are perturbed (perturb)."""
+    render_ground_truth(model, batches, log)
+    perturb(model, device)
+
+
+def perturb(model, device):
+    """The colors and opacities of the live points perturbed from a seeded
     generator."""
     import torch
 
-    render_ground_truth(model, batches, log)
     n = model.num_points
     g = torch.Generator(device=device).manual_seed(SEED + 1)
     for key, scale, shift in (("colors", 0.3, 0.0), ("opacity", 0.5, -0.5)):
@@ -1181,7 +1250,7 @@ def compare_k1_step(calls, log):
     return modes, failures
 
 
-def replay_step0(step0, log):
+def replay_step0(step0, log, grad_tol=STEP_GRAD_REL_TOL):
     """Step 0 again from its recorded inputs (the step is functional, so
     they are the pre-step state): once through the kernels, once through
     the plain versions. The first Adam moments after one step from zero are
@@ -1213,7 +1282,7 @@ def replay_step0(step0, log):
         f"{float(out_p[4]['loss']):.6f} (|d| {d_loss:.3g}); step "
         f"{k_ms:.1f} ms with kernels, {p_ms:.1f} ms plain")
     fails = []
-    if d_loss > STEP_LOSS_TOL or worst > STEP_GRAD_REL_TOL:
+    if d_loss > STEP_LOSS_TOL or worst > grad_tol:
         fails.append(f"step 0 with plain versions differs: loss {d_loss}, "
                      f"grad rel {worst}")
     return {"loss_abs_diff": d_loss, "grad_rel_err": worst,
@@ -1302,11 +1371,14 @@ def profile_frames(label, model, renderer, batches, frame_ms, log):
 
 
 # ------------------------------------------------------------------ growth
-def hold_calls(calls, label, log):
+def hold_calls(calls, label, log, rows_out=None):
     """Every K4 pack, K3 and K3p (bit-exact), K1 (each with_stats mode
-    recorded), K5 (K1's tolerances) and K2, those of them that the call
+    recorded), K5 (K1's tolerances) and every K2, those of them that the call
     ran, on the recorded inputs of one main-path step or frame, against
-    their plain versions. Returns ({kernel: max_abs_err}, failures)."""
+    their plain versions. Returns ({kernel: max_abs_err}, failures); with
+    rows_out, K1's rows (one per mode) and K2's (one per call), with their
+    times and bounds, are appended to rows_out["rasterize_fwd"] and
+    rows_out["rasterize_bwd"]."""
     import torch
 
     from log_tpu_torch.ops import expand as ex
@@ -1358,13 +1430,17 @@ def hold_calls(calls, label, log):
             if errs["rasterize_fwd_packed"] > K1_MAX_ABS or mean > K1_MEAN_ABS:
                 fails.append(f"{label}: K5 rasterize_forward_packed disagrees "
                              f"with plain")
+    rows_out = {} if rows_out is None else rows_out
     if "rasterize_fwd" in calls:
         modes = [check_k1(label, mode, a, log, fails)
                  for mode, a in k1_calls_by_mode(calls).items()]
         errs["rasterize_fwd"] = max(m["max_abs_err"] for m in modes)
-    if "rasterize_bwd" in calls:
-        row, f = compare_k2(calls, log)
-        errs["rasterize_bwd"] = row["max_abs_err"]
+        rows_out.setdefault("rasterize_fwd", []).extend(modes)
+    for call in calls.get("rasterize_bwd", []):  # each backward pass's
+        row, f = compare_k2({"rasterize_bwd": [call]}, log)
+        errs["rasterize_bwd"] = max(errs.get("rasterize_bwd", 0.0),
+                                    row["max_abs_err"])
+        rows_out.setdefault("rasterize_bwd", []).append(row)
         fails += f
     log(f"{label}: K4/K3/K3p exact, max |kernel - plain| {errs}")
     return errs, fails
@@ -1588,6 +1664,341 @@ def growth_phase(model, trainer, batches, step_ms, device, log):
              "peak_bytes": peak, **held, "steps": steps,
              "step_ms_before_median": float(np.median(step_ms))},
             launches, errs, failures)
+
+
+def inverse_depth_u16(depth, acc):
+    """A monocular depth map as DepthDataset reads it: the inverse depth
+    1 / (depth + 1e-5) where acc > 0.5 (else 0) over its largest value,
+    quantized to 16 bits (uint16)."""
+    inv = np.where(acc > 0.5, 1.0 / (np.maximum(depth, 0.0) + 1e-5), 0.0)
+    return np.round(inv / max(float(inv.max()), 1e-12) * 65535.0).astype(
+        np.uint16)
+
+
+def render_depth_ground_truth(model, batches, device, log):
+    """The model's depth maps through NaiveRendererAndLoss.vis with
+    render_depth (black background), into the batches as data["depth"]
+    (B, H, W): inverse depth in [0, 1] as a 16-bit map reads."""
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+
+    renderer = NaiveRendererAndLoss(split="demo", render_depth=True,
+                                    device=device)
+    model.eval()
+    for b in batches:
+        preds = renderer.vis(b, model, background=np.zeros(3, np.float32))
+        q = inverse_depth_u16(preds["depth"][0], preds["accmap"][0])
+        b["depth"] = (q.astype(np.float32) / 65535.0)[None]
+        log(f"GT depth view {int(b['index'][0])}: depth "
+            f"{float(preds['depth'][0].max()):.3f} at most, accmap > 0.5 on "
+            f"{float((preds['accmap'][0] > 0.5).mean()):.4f}, inverse depth "
+            f"mean {float(b['depth'].mean()):.4f}")
+    model.train()
+
+
+def train_twin(snapshot, device):
+    """A training model on the card loaded from `snapshot` (a training
+    model's state_dict), set up as build_train_model sets its model."""
+    from log_tpu_torch.utils.config import load_object
+
+    model = load_object("LoG.model.level_of_gaussian.LoG", MODEL_ARGS,
+                        device=device)
+    model.base_iter = BASE_ITER
+    model.view_correction.init(TRAIN_VIEWS)
+    model.load_state_dict(snapshot, split="train")
+    model.set_state(enable_sh=True)
+    model.set_stage("tree")
+    return model
+
+
+def depth_step_phase(device, train_median, log):
+    """The training phase's tree, views and perturbation with a GT depth map
+    per view (the unperturbed tree's) and render_depth on: DEPTH_STEPS
+    steps of Trainer.training_step. Step 0's kernel calls (copies) are held
+    against the plain versions right after it and step 0 is replayed with
+    every kernel plain; the timed window is steps 1 on. Returns (json,
+    launches, held kernel errors, snapshot, batches, failures): the
+    snapshot is the perturbed tree before any step, the batches carry the
+    GT frames."""
+    import torch
+
+    from log_tpu_torch.model import level_of_gaussian as lg
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+    from log_tpu_torch.utils.trainer import Trainer
+
+    failures = []
+    t0 = time.perf_counter()
+    model = build_train_model(device)
+    batches = train_batches()
+    render_ground_truth(model, batches, log)
+    render_depth_ground_truth(model, batches, device, log)
+    perturb(model, device)
+    snapshot = snapshot_of(model)
+    log(f"depth_step setup: {model.num_points} points, "
+        f"{time.perf_counter() - t0:.2f} s")
+    renderer = NaiveRendererAndLoss(split="train", use_randback=True,
+                                    render_depth=True, device=device)
+    trainer = Trainer({}, model, renderer, seed=SEED)
+    trainer.set_gt_cache(True)
+    step0 = {"calls": {}, "step": []}
+    real_step = lg.fused_train_step
+
+    def record_step(*args, **kwargs):
+        step0["step"].append((args, kwargs))
+        return real_step(*args, **kwargs)
+
+    steps, bad, errs, replay, held_rows = [], [], {}, {}, {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for i in range(DEPTH_STEPS):
+        batch = batches[i % TRAIN_VIEWS]
+        before = dict(kernels.LAUNCHES)
+        if i == 0:
+            with recording(step0["calls"], copy=True), \
+                    patched(lg, {"fused_train_step": record_step}):
+                (_, out, _), s = timed(
+                    lambda: trainer.training_step(model, batch))
+        else:
+            (_, out, _), s = timed(lambda: trainer.training_step(model, batch))
+        trainer.global_iterations += 1
+        met = out["metrics"]
+        steps.append({"step": i, "ms": s * 1e3, "loss": float(met["loss"]),
+                      "depth": float(met["depth"]), "l1": float(met["l1"]),
+                      "ran": {k: kernels.LAUNCHES[k] - before[k]
+                              for k in kernels.LAUNCHES}})
+        if not (math.isfinite(steps[-1]["depth"]) and _finite(
+                model.gaussian.params(), model.optimizer.moments["exp_avg"],
+                model.optimizer.moments["exp_avg_sq"])):
+            bad.append(i)
+        if i == 0:
+            # the holds, then the timed window without step 0's copies
+            calls = step0["calls"]
+            modes = sorted(str(a[6]) for a, _ in calls.get("rasterize_fwd", []))
+            log(f"depth step 0: K1 modes {modes}, "
+                f"{len(calls.get('rasterize_bwd', []))} K2 calls")
+            if "False" not in modes or len(calls.get("rasterize_bwd", [])) != 2:
+                failures.append(f"depth step 0: K1 modes {modes} and "
+                                f"{len(calls.get('rasterize_bwd', []))} K2 "
+                                f"calls (want a no-stats K1 and two K2)")
+            errs, f = hold_calls(calls, "depth step 0", log, held_rows)
+            failures += f
+            replay, f = replay_step0(step0, log, DEPTH_STEP_GRAD_REL_TOL)
+            failures += f
+            del step0, calls
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: sum(x["ran"][k] for x in steps) for k in kernels.LAUNCHES}
+    per_step = {k: v / DEPTH_STEPS for k, v in launches.items()}
+    step_ms = [x["ms"] for x in steps[1:]]
+    first = float(np.mean([x["loss"] for x in steps[:DEPTH_LOSS_WINDOW]]))
+    last = float(np.mean([x["loss"] for x in steps[-DEPTH_LOSS_WINDOW:]]))
+    log("depth_step: per-step ms " + " ".join(f"{x['ms']:.1f}" for x in steps))
+    log("depth_step: loss " + " ".join(f"{x['loss']:.4f}" for x in steps))
+    log("depth_step: depth term " + " ".join(f"{x['depth']:.4f}"
+                                             for x in steps))
+    log(f"depth_step: step median {np.median(step_ms):.3f} ms (plain "
+        f"training median of this call {train_median:.3f} ms) over steps "
+        f"1-{DEPTH_STEPS - 1}; peak memory {peak / 2**30:.3f} GiB; launches "
+        f"per step {per_step}; mean loss first {DEPTH_LOSS_WINDOW} steps "
+        f"{first:.5f}, last {DEPTH_LOSS_WINDOW} {last:.5f}")
+    if bad:
+        failures.append(f"depth_step: non-finite depth term or state after "
+                        f"steps {bad}")
+    if not last < first:
+        failures.append(f"depth_step: loss did not fall: {first} -> {last}")
+    uneven = [x["step"] for x in steps if x["ran"]["rasterize_bwd"] != 2
+              or min(x["ran"][k] for k in ("rasterize_fwd", "expand_with_keys",
+                                           "pack_rows")) < 2]
+    if uneven:
+        failures.append(f"depth_step: steps without K2 twice and K1, K3, K4 "
+                        f"at least twice: {uneven}")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return ({"steps": steps, "step_ms_median": float(np.median(step_ms)),
+             "train_step_ms_median": train_median, "peak_bytes": peak,
+             "launches_per_step": per_step, "loss_first_last": [first, last],
+             "step0_replay": replay, "held_rows": held_rows},
+            launches, errs, snapshot, batches, failures)
+
+
+def spill_phase(snapshot, batches, device, log):
+    """From one snapshot of the training tree: SPILL_STEPS steps (prepare +
+    LoG.train_step, LOG_TPU_IDENTITY_STEP=0, fixed backgrounds) on the
+    device path, then the same steps with both moment kinds spilled by
+    maybe_spill (thresholds below the point count); then a host-path
+    densify of the spilled model and SPILL_AFTER_DENSIFY more steps.
+    Returns (json, launches by run, failures)."""
+    import os
+
+    import torch
+
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.utils import hbm
+
+    failures = []
+    rng = np.random.default_rng(SEED + 3)
+    bgs = [rng.random(3).astype(np.float32)
+           for _ in range(SPILL_STEPS + SPILL_AFTER_DENSIFY)]
+    index_checks = []
+
+    def run(model, first, n):
+        rows = []
+        for i in range(first, first + n):
+            b = batches[i % TRAIN_VIEWS]
+            camera = {k: np.asarray(v)[0] for k, v in b["camera"].items()}
+            gt = np.ascontiguousarray(b["image"][0].transpose(2, 0, 1))
+
+            def one():
+                model.prepare_from_camera(camera)
+                return model.train_step(camera, gt, bgs[i], view_index=i %
+                                        TRAIN_VIEWS)
+            (met, aux), s = timed(one)
+            if index_checks and index_checks[-1][1] is None:
+                index_checks[-1][1] = aux["index"].cpu().numpy()
+            rows.append({"step": i, "ms": s * 1e3, "loss": float(met["loss"])})
+        return rows
+
+    saved = os.environ.get("LOG_TPU_IDENTITY_STEP")
+    os.environ["LOG_TPU_IDENTITY_STEP"] = "0"
+    try:
+        model = train_twin(snapshot, device)
+        moment_bytes = sum(v.numel() * v.element_size()
+                           for kind in model.optimizer.moments.values()
+                           for v in kind.values())
+        moment_cols = sum(int(np.prod(v.shape[1:])) for v in
+                          model.optimizer.moments["exp_avg"].values())
+        kernels.reset_launches()
+        dev_steps, dev_mem = hbm.call_stats(run, model, 0, SPILL_STEPS)
+        dev_launches = dict(kernels.LAUNCHES)
+        want = snapshot_of(model)
+        n0, cap0 = model.num_points, model.capacity
+        del model
+        torch.cuda.empty_cache()
+
+        model = train_twin(snapshot, device)
+        opt = model.optimizer
+        opt.spill_points = opt.spill_points_full = model.num_points - 1
+        did = opt.maybe_spill(model.num_points)
+        pinned = all(v.is_pinned() for kind in opt.host_moments.values()
+                     for v in kind.values())
+        log(f"spill: maybe_spill({model.num_points}) with thresholds "
+            f"{opt.spill_points} -> spilled {opt.spilled}, host tensors "
+            f"pinned={pinned}; device moments {moment_cols} columns x "
+            f"{cap0} rows x 2 kinds = {moment_bytes} bytes "
+            f"({moment_bytes / 2**30:.3f} GiB)")
+        if not (did and opt.spilled == ("exp_avg", "exp_avg_sq") and pinned
+                and opt.moments == {"exp_avg": {}, "exp_avg_sq": {}}):
+            failures.append(f"spill: maybe_spill left {opt.spilled}, "
+                            f"pinned={pinned}")
+        gather = opt.host_gather
+
+        def record_gather(index):
+            if not index_checks:
+                index_checks.append([np.array(index), None])
+            return gather(index)
+
+        opt.host_gather = record_gather
+        kernels.reset_launches()
+        moved0 = dict(opt.transfer_bytes)
+        spill_steps, spill_mem = hbm.call_stats(run, model, 0, SPILL_STEPS)
+        spill_launches = dict(kernels.LAUNCHES)
+        moved = {k: (opt.transfer_bytes[k] - moved0[k]) / SPILL_STEPS
+                 for k in moved0}
+        got = snapshot_of(model)
+    finally:
+        if saved is None:
+            del os.environ["LOG_TPU_IDENTITY_STEP"]
+        else:
+            os.environ["LOG_TPU_IDENTITY_STEP"] = saved
+
+    host_idx, step_idx = index_checks[0]
+    same_index = np.array_equal(host_idx, step_idx)
+    diffs = {k: float(np.abs(got[k].astype(np.float64)
+                             - want[k].astype(np.float64)).max())
+             for k in want if got[k].shape == want[k].shape
+             and not np.array_equal(got[k], want[k])}
+    shapes_ok = set(got) == set(want) and all(
+        got[k].shape == want[k].shape for k in want)
+    held = shapes_ok and all(
+        np.allclose(got[k], want[k], rtol=SPILL_RTOL, atol=SPILL_ATOL)
+        for k in diffs)
+    drop = dev_mem["peak_bytes"] - spill_mem["peak_bytes"]
+    dev_ms = [x["ms"] for x in dev_steps[1:]]
+    sp_ms = [x["ms"] for x in spill_steps[1:]]
+    log("spill: device path ms " + " ".join(f"{x['ms']:.1f}" for x in dev_steps)
+        + "; spilled ms " + " ".join(f"{x['ms']:.1f}" for x in spill_steps))
+    log(f"spill: step median device {np.median(dev_ms):.3f} ms, spilled "
+        f"{np.median(sp_ms):.3f} ms (steps 1-{SPILL_STEPS - 1}); per spilled "
+        f"step {moved['h2d'] / 2**20:.2f} MiB up, {moved['d2h'] / 2**20:.2f} "
+        f"MiB down; peak device memory {dev_mem['peak_bytes'] / 2**30:.3f} "
+        f"GiB device path, {spill_mem['peak_bytes'] / 2**30:.3f} GiB spilled "
+        f"(drop {drop / 2**30:.3f} GiB = {drop / moment_bytes:.3f} of the "
+        f"moments); host index = step index: {same_index} "
+        f"({int((host_idx < cap0).sum())} rows of {host_idx.size} lanes)")
+    log(f"spill: spilled vs device path after {SPILL_STEPS} steps: "
+        + (f"{len(want)} arrays equal bit for bit" if not diffs else
+           f"differ in {sorted(diffs)}, largest |d| {max(diffs.values()):.3g}"
+           f" (held at rtol {SPILL_RTOL} atol {SPILL_ATOL}: {held})"))
+    if not held:
+        failures.append(f"spill: spilled run differs from the device path: "
+                        f"{diffs}")
+    if not same_index:
+        failures.append("spill: the host gather index is not the step's index")
+    if drop < SPILL_MEMORY_SHARE * moment_bytes:
+        failures.append(f"spill: peak fell by {drop} bytes, under "
+                        f"{SPILL_MEMORY_SHARE} of the {moment_bytes} moment "
+                        f"bytes")
+    for name, ran in (("device path", dev_launches), ("spilled", spill_launches)):
+        if ran["rasterize_bwd"] != SPILL_STEPS or min(
+                ran[k] for k in STEP_KERNELS) < SPILL_STEPS:
+            failures.append(f"spill {name}: launches {ran} in {SPILL_STEPS} "
+                            f"steps")
+
+    # a host-path densify of the spilled model, then more steps
+    d = model.densify_and_remove
+    model.set_state(current_depth=20)  # what upgrade_tree sets
+    d["min_steps_split"] = 0
+    path = "device" if model._use_device_densify() else "host"
+    _, dens_s = timed(lambda: model.update_depth_stage(SPILL_STEPS))
+    host_ok = all(v.shape[0] == model.capacity and v.is_pinned()
+                  for kind in opt.host_moments.values()
+                  for v in kind.values())
+    kernels.reset_launches()
+    after = run(model, SPILL_STEPS, SPILL_AFTER_DENSIFY)
+    after_launches = dict(kernels.LAUNCHES)
+    finite = (_finite(model.gaussian.params())
+              and _finite(*opt.host_moments.values())
+              and all(math.isfinite(x["loss"]) for x in after))
+    n1, cap1 = model.num_points, model.capacity
+    log(f"spill: {path}-path densify {n0} -> {model.num_points} points, "
+        f"capacity {cap0} -> {model.capacity}, {dens_s:.3f} s; host moments "
+        f"at the new capacity and pinned: {host_ok}; {SPILL_AFTER_DENSIFY} "
+        f"more steps ms " + " ".join(f"{x['ms']:.1f}" for x in after)
+        + f", finite: {finite}")
+    if path != "host" or not host_ok or not finite or n1 == n0:
+        failures.append(f"spill densify: path {path}, host moments at "
+                        f"capacity {host_ok}, finite {finite}, points "
+                        f"{n0} -> {n1}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return ({"moment_bytes": moment_bytes, "moment_columns": moment_cols,
+             "device_steps": dev_steps, "spilled_steps": spill_steps,
+             "device_step_ms_median": float(np.median(dev_ms)),
+             "spilled_step_ms_median": float(np.median(sp_ms)),
+             "h2d_bytes_per_step": moved["h2d"],
+             "d2h_bytes_per_step": moved["d2h"],
+             "device_peak_bytes": dev_mem["peak_bytes"],
+             "spilled_peak_bytes": spill_mem["peak_bytes"],
+             "peak_drop_share": drop / moment_bytes,
+             "max_abs_diff": diffs, "host_index_equal": same_index,
+             "densify": {"path": path, "s": dens_s, "points_before": n0,
+                         "points": n1, "capacity_before": cap0,
+                         "capacity": cap1},
+             "after_densify_steps": after},
+            {"spill_device": dev_launches, "spill": spill_launches,
+             "spill_after_densify": after_launches}, failures)
 
 
 def write_root_cloud(path, log):
@@ -1864,14 +2275,21 @@ def cli_phase(log):
     for d in (CLI_SCENE, os.path.dirname(CLI_EXP)):
         shutil.rmtree(d, ignore_errors=True)
     out = {"probe": probe_packages(log), "phase_s": {}}
-    # the port's path must not need them: importing one raises from here on
+    with blocked_imports(log):
+        return _cli_phase(log, out, failures)
+
+
+@contextlib.contextmanager
+def blocked_imports(log):
+    """CLI_BLOCKED made unimportable: the port's path must not need them,
+    so importing one raises inside."""
     names = set(CLI_BLOCKED) | {m for m in sys.modules
                                 if m.split(".")[0] in CLI_BLOCKED}
     saved = {name: sys.modules.get(name) for name in names}
     sys.modules.update(dict.fromkeys(names))
-    log(f"cli: imports of {', '.join(CLI_BLOCKED)} blocked")
+    log(f"imports of {', '.join(CLI_BLOCKED)} blocked")
     try:
-        return _cli_phase(log, out, failures)
+        yield
     finally:
         for name, mod in saved.items():
             if mod is None:
@@ -2154,6 +2572,263 @@ def _cli_phase(log, out, failures):
     return out, launches, n_calls, errs, failures
 
 
+def write_cli_depth_maps(log, device="cuda"):
+    """16-bit inverse-depth maps (inverse_depth_u16) of the cli scene's
+    views at CLI_DEPTH_SCALE, where DepthDataset looks for them
+    (cache/<scale>/depth/cam/<name><ext>.png), rendered on the card by the
+    oracle from the scene's own generator Gaussians (the draws of
+    SyntheticDataset with seed 0) with (camera depth, world z, 1) as
+    colors over a black background. Returns the number written."""
+    import os
+
+    import torch
+
+    from log_tpu_torch.dataset.base import prepare_camera, rescale_camera
+    from log_tpu_torch.dataset.synthetic import random_gaussians, ring_cameras
+    from log_tpu_torch.ops.projection import project_gaussians
+    from log_tpu_torch.ops.rasterize_ref import rasterize
+    from log_tpu_torch.utils import image_io
+
+    n, views, h, w = (int(a) for a in CLI_SCENE_ARGS[1:5])
+    ext = CLI_SCENE_ARGS[5]
+    g = {k: torch.from_numpy(v).to(device) for k, v in
+         random_gaussians(n, np.random.default_rng(0)).items()}
+    ones = torch.ones_like(g["xyz"][:, 2])
+    root = os.path.join(os.path.abspath(CLI_SCENE), "cache",
+                        str(CLI_DEPTH_SCALE), "depth", "cam")
+    for i, cam in enumerate(ring_cameras(views, h, w)):
+        pc = prepare_camera(rescale_camera(cam, CLI_DEPTH_SCALE), 1, 0.01,
+                            100.0)
+        tx, ty = math.tan(pc["FoVx"] * 0.5), math.tan(pc["FoVy"] * 0.5)
+        kw = dict(
+            xyz=g["xyz"], opacity=g["opacity"], scaling=g["scaling"],
+            rotation=g["rotation"], means2d_offset=torch.zeros_like(
+                g["xyz"][:, :2]),
+            world_view=torch.from_numpy(pc["world_view_transform"]).to(device),
+            full_proj=torch.from_numpy(pc["full_proj_transform"]).to(device),
+            focal_x=pc["image_width"] / (2 * tx),
+            focal_y=pc["image_height"] / (2 * ty), tan_fovx=tx, tan_fovy=ty,
+            background=torch.zeros(3, device=device),
+            image_height=pc["image_height"], image_width=pc["image_width"],
+            use_filter=False)
+        with torch.no_grad():
+            depth_cam = project_gaussians(
+                kw["xyz"], kw["scaling"], kw["rotation"], kw["opacity"],
+                kw["world_view"], kw["full_proj"], kw["focal_x"],
+                kw["focal_y"], tx, ty, kw["image_height"], kw["image_width"],
+                use_filter=False).depth
+            # chunks of 1024 Gaussians: 20 sequential chunks per map
+            out = rasterize(colors=torch.stack([depth_cam, g["xyz"][:, 2],
+                                                ones], -1), chunk=1024,
+                            **kw)["render"]
+        out = out.cpu().numpy()
+        image_io.imwrite(os.path.join(root, f"{i:04d}{ext}.png"),
+                         inverse_depth_u16(out[0], out[2]))
+    log(f"cli_depth: {views} inverse-depth maps {pc['image_width']}x"
+        f"{pc['image_height']} (scale {CLI_DEPTH_SCALE}) under {root}")
+    return views
+
+
+def cli_depth_phase(plain_final, log, device="cuda"):
+    """The cli scene with depth maps (write_cli_depth_maps) through the
+    port's CLI with train_wdepth.yml's overrides (DepthDataset at
+    CLI_DEPTH_SCALE, render_depth): train (the full schedule), final_val,
+    then demo_interpolate with render_type depth and height. Returns (json,
+    launches by sub-phase, calls by sub-phase, held kernel errors,
+    failures)."""
+    import os
+    import shutil
+
+    shutil.rmtree(os.path.dirname(CLI_DEPTH_EXP), ignore_errors=True)
+    with blocked_imports(log):
+        return _cli_depth_phase(plain_final, log, device)
+
+
+def _cli_depth_phase(plain_final, log, device):
+    import os
+
+    import torch
+
+    from log_tpu_torch.apps import final_val, train
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+    from log_tpu_torch.utils import image_io
+    from log_tpu_torch.utils.trainer import Trainer
+
+    failures, out = [], {"phase_s": {}}
+    _, out["phase_s"]["maps"] = timed(lambda: write_cli_depth_maps(log,
+                                                                   device))
+    opts = list(CLI_OPTS)
+    opts[opts.index("exp") + 1] = CLI_DEPTH_EXP
+    opts += CLI_DEPTH_OPTS
+    steps, frames, views, held, taken = [], [], [], {}, {}
+    where = {"sub": "train"}
+    real_step, real_vis = Trainer.training_step, NaiveRendererAndLoss.vis
+    real_one = NaiveRendererAndLoss.render_one
+
+    def ran_since(before):
+        return {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+
+    def step(self, model, data):
+        # the tree stage's first step after a densify, held afterwards
+        prev = steps[-1] if steps else None
+        label = "cli_depth tree step after a densify"
+        hold = (model.stage_name == "tree" and prev is not None
+                and prev["stage"] == "tree"
+                and prev["points"] != model.num_points and label not in held)
+        calls = held.setdefault(label, {}) if hold else None
+        before = dict(kernels.LAUNCHES)
+        with recording(calls, copy=True) if hold else contextlib.nullcontext():
+            (ok, output, loss), s = timed(lambda: real_step(self, model, data))
+        met = output["metrics"]
+        steps.append({"stage": model.stage_name, "ms": s * 1e3,
+                      "loss": float(output["loss_dev"]),
+                      "depth": float(met["depth"]) if "depth" in met else None,
+                      "points": model.num_points, "ran": ran_since(before)})
+        return ok, output, loss
+
+    def one(self, *args, **kwargs):
+        before = dict(kernels.LAUNCHES)
+        res = real_one(self, *args, **kwargs)
+        views.append({"sub": where["sub"], "ran": ran_since(before)})
+        return res
+
+    def frame(self, batch, model, background=None):
+        if getattr(model, "training", False):
+            return real_vis(self, batch, model, background)
+        before = dict(kernels.LAUNCHES)
+        res = real_vis(self, batch, model, background)
+        sub = where["sub"]
+        n = sum(f["sub"] == sub for f in frames)
+        frames.append({"sub": sub, "ran": ran_since(before)})
+        if n == CLI_DEMO_WARMUP:  # the first timed frame: 000000
+            taken[sub] = {k: np.array(res[k][0]) for k in
+                          ("depth", "height", "accmap") if k in res}
+        return res
+
+    launches, n_calls = {}, {}
+
+    def run(sub, fn, calls):
+        """fn() as sub-phase `sub`: its launches, those of `calls` (the
+        steps or frames it ran, each with its own count) apart from any
+        others (validation views, the init pass)."""
+        where["sub"] = sub
+        kernels.reset_launches()
+        n0 = len(calls)
+        res, s = timed(fn)
+        total = dict(kernels.LAUNCHES)
+        mine = [x for x in calls[n0:] if x.get("sub", sub) == sub]
+        ran = {k: sum(x["ran"][k] for x in mine) for k in total}
+        launches[f"cli_depth_{sub}"] = ran
+        n_calls[f"cli_depth_{sub}"] = len(mine)
+        other = {k: total[k] - ran[k] for k in total}
+        if any(other.values()):
+            launches[f"cli_depth_{sub}_other"] = other
+        log(f"cli_depth {sub}: {s:.2f} s, launches {ran} in {len(mine)} "
+            f"calls, {other} outside them")
+        return res, s
+
+    argv = ["--cfg", CLI_CFG, "split"]
+    ckpt = os.path.join(CLI_DEPTH_EXP, "model_tree_full.pth")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with patched(Trainer, {"training_step": step}), \
+            patched(NaiveRendererAndLoss, {"vis": frame, "render_one": one}):
+        trainer, out["phase_s"]["train"] = run(
+            "train", lambda: train.main(argv + ["train"] + opts), steps)
+        peak = torch.cuda.max_memory_allocated()
+        points = trainer.model.num_points
+        del trainer
+        torch.cuda.empty_cache()
+        record, out["phase_s"]["final_val"] = run(
+            "final_val", lambda: final_val.main([CLI_CFG, ckpt] + opts),
+            views)
+        demo_ms = {}
+        for kind, (lo, hi) in CLI_DEPTH_RANGES.items():
+            demo_ms[kind], out["phase_s"][f"demo_{kind}"] = run(
+                f"demo_{kind}", lambda: train.main(
+                    argv + ["demo_interpolate", "ckptname", ckpt,
+                            "render_type", kind, f"{kind}_min", str(lo),
+                            f"{kind}_max", str(hi)] + opts), frames)
+    by_stage = {}
+    for x in steps:
+        by_stage.setdefault(x["stage"], []).append(x)
+    step_ms = [x["ms"] for x in steps]
+    log(f"cli_depth train: {len(steps)} steps, "
+        + ", ".join(f"{st} {len(v)} steps (median "
+                    f"{np.median([x['ms'] for x in v]):.2f} ms)"
+                    for st, v in by_stage.items())
+        + f"; step median {np.median(step_ms):.3f} ms; peak memory "
+        f"{peak / 2**30:.3f} GiB; {points} points")
+    no_depth = [i for i, x in enumerate(steps)
+                if x["depth"] is None or not math.isfinite(x["depth"])]
+    uneven = [i for i, x in enumerate(steps) if x["ran"]["rasterize_bwd"] != 2
+              or min(x["ran"][k] for k in SERVING_KERNELS) < 2]
+    if not steps or no_depth or uneven:
+        failures.append(f"cli_depth train: steps without a finite depth term "
+                        f"{no_depth[:4]}, without K2 twice and K1, K3, K4 at "
+                        f"least twice {uneven[:4]}")
+    for st in ("init", "tree"):
+        losses = [x["loss"] for x in by_stage.get(st, [])]
+        first = float(np.mean(losses[:CLI_LOSS_WINDOW]))
+        last = float(np.mean(losses[-CLI_LOSS_WINDOW:]))
+        out[f"{st}_loss_first_last"] = [first, last]
+        log(f"cli_depth {st}: mean loss first {CLI_LOSS_WINDOW} steps "
+            f"{first:.5f}, last {CLI_LOSS_WINDOW} {last:.5f}")
+        if not (len(losses) >= 2 * CLI_LOSS_WINDOW and last < first):
+            failures.append(f"cli_depth {st}: loss did not fall ({first} -> "
+                            f"{last})")
+    log(f"cli_depth final-val: psnr {record['psnr']:.3f} ssim "
+        f"{record['ssim']:.4f} l1 {record['l1']:.4f}, {record['num_points']} "
+        f"points; the plain cli run of this call: psnr "
+        f"{plain_final['psnr']:.3f} ssim {plain_final['ssim']:.4f}")
+    if record["psnr"] < CLI_MIN_PSNR or record["ssim"] < CLI_MIN_SSIM:
+        failures.append(f"cli_depth final-val below {CLI_MIN_PSNR} dB / "
+                        f"{CLI_MIN_SSIM}: {record}")
+    for kind, (lo, hi) in CLI_DEPTH_RANGES.items():
+        sub = f"demo_{kind}"
+        folder = os.path.join(CLI_DEPTH_EXP, "demo_interpolate", kind)
+        names = sorted(os.listdir(folder)) if os.path.isdir(folder) else []
+        imgs = [image_io.imread(os.path.join(folder, f)) for f in names]
+        flat = [f for f, im in zip(names, imgs) if int(im.max()) == int(im.min())]
+        n_frames = sum(f["sub"] == sub for f in frames)
+        ran = launches.get(f"cli_depth_{sub}", {})
+        same = False
+        if sub in taken and imgs:
+            want = NaiveRendererAndLoss.marigold_depth_vis(
+                (taken[sub][kind] - lo) / (hi - lo))
+            same = np.array_equal(imgs[0], want)
+        log(f"cli_depth {sub}: {len(names)} frames ({names[:1]}...), "
+            f"{len(flat)} constant, frame {CLI_DEMO_WARMUP} of vis in "
+            f"Spectral colors equals {names[:1]}: {same}; average frame "
+            f"{demo_ms[kind]:.3f} ms")
+        if (len(names) != CLI_DEMO_FRAMES or flat or not same
+                or n_frames != CLI_DEMO_FRAMES + CLI_DEMO_WARMUP
+                or min(ran.get(k, 0) for k in SERVING_KERNELS) < 2 * n_frames):
+            failures.append(f"cli_depth {sub}: {len(names)} frames, constant "
+                            f"{flat[:3]}, equal to vis {same}, {n_frames} "
+                            f"renders, launches {ran}")
+    errs = {}
+    if not held:
+        failures.append("cli_depth: no tree step after a densify recorded")
+    for label, calls in held.items():
+        modes = sorted(str(a[6]) for a, _ in calls.get("rasterize_fwd", []))
+        if "False" not in modes or len(calls.get("rasterize_bwd", [])) != 2:
+            failures.append(f"{label}: K1 modes {modes}, "
+                            f"{len(calls.get('rasterize_bwd', []))} K2 calls")
+        e, f = hold_calls(calls, label, log)
+        failures += f
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    del held
+    out.update(steps=len(steps), step_ms_median=float(np.median(step_ms)),
+               stage_step_ms_median={st: float(np.median(
+                   [x["ms"] for x in v])) for st, v in by_stage.items()},
+               peak_bytes=peak, points=points, final_val=record,
+               plain_final_val=plain_final, demo_frame_ms=demo_ms)
+    return out, launches, n_calls, errs, failures
+
+
 def main() -> int:
     import torch
 
@@ -2308,6 +2983,19 @@ def main() -> int:
     failures += gfail
     del model, trainer, batches
     torch.cuda.empty_cache()
+    # ------------------------------------------------- depth and spill
+    depth_json, d_launches, held["depth_step"], snapshot, batches, dfail = \
+        depth_step_phase(device, float(np.median(step_ms)), log)
+    failures += dfail
+    rows["rasterize_fwd"]["modes"] += depth_json["held_rows"].get(
+        "rasterize_fwd", [])
+    rows["rasterize_bwd"]["depth_step_calls"] = depth_json["held_rows"].get(
+        "rasterize_bwd", [])
+    spill_json, s_launches, sfail = spill_phase(snapshot, batches, device,
+                                                log)
+    failures += sfail
+    del snapshot, batches
+    torch.cuda.empty_cache()
     two_json, model, ts_launches, held["two_stage"], tfail = two_stage_phase(
         device, log)
     failures += tfail
@@ -2318,6 +3006,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_json, cli_launches, cli_calls, held["cli"], cfail = cli_phase(log)
     failures += cfail
+    cd_json, cd_launches, cd_calls, held["cli_depth"], cdfail = \
+        cli_depth_phase(cli_json["final_val"], log)
+    failures += cdfail
 
     log(json.dumps({
         "slice": slice_json,
@@ -2326,17 +3017,21 @@ def main() -> int:
                   "step_ms_max": float(np.max(step_ms)),
                   "steps": steps, "peak_bytes": t_peak,
                   "launches": t_launches, "step0_replay": replay},
-        "growth": growth_json, "two_stage": two_json,
-        "grown_frame": frame_json, "cli": cli_json,
+        "growth": growth_json, "depth_step": depth_json,
+        "spill": spill_json, "two_stage": two_json,
+        "grown_frame": frame_json, "cli": cli_json, "cli_depth": cd_json,
     }))
     kernels_json = []
     runs = dict(serve_runs, train=t_launches, growth=g_launches,
-                two_stage=ts_launches, grown_frame=gf_launches, **cli_launches)
+                depth_step=d_launches, **s_launches, two_stage=ts_launches,
+                grown_frame=gf_launches, **cli_launches, **cd_launches)
     # main-path calls per phase: frames, training steps, or renders
     n_calls = dict({phase: FRAMES for phase in serve_runs},
                    train=TRAIN_STEPS, growth=GROWTH_STEPS,
+                   depth_step=DEPTH_STEPS, spill_device=SPILL_STEPS,
+                   spill=SPILL_STEPS, spill_after_densify=SPILL_AFTER_DENSIFY,
                    two_stage=len(two_json["steps"]), grown_frame=1,
-                   **cli_calls)
+                   **cli_calls, **cd_calls)
     # the growth phases' own calls held against the plain versions
     for phase, errs in held.items():
         for name, err in errs.items():

@@ -6,7 +6,8 @@
 The same argv, YAML and outputs as the JAX package's apps/train.py: the
 base_iter rule, the code snapshot and config.yaml of a training run, the
 init pass and Trainer.fit; the demo splits' 11-frame warm-up, timed render
-loop, frames under <exp>/<split>/rgb and video; the val split's gt/renders
+loop, frames under <exp>/<split>/<render_type> (rgb, or with render_type
+depth / height the map in Spectral colors) and video; the val split's gt/renders
 dumps per scale. --device (default cuda) is where the model, renderer and
 trainer run; asking for cuda where there is none is an error.
 """
@@ -89,7 +90,14 @@ def demo(cfg, model, device):
             model.set_state(**item["model_state"])
         with timer.measure():
             output = renderer.vis(batch, model)
-        vis = renderer.tensor_to_bgr(output["render"][0])
+        if render_type in ("depth", "height"):
+            # the map normalized by the config's range, Spectral colors
+            lo, hi = (cfg.get(f"{render_type}_min", 0.01),
+                      cfg.get(f"{render_type}_max", 10.0))
+            vis = renderer.marigold_depth_vis(
+                (output[render_type][0] - lo) / (hi - lo))
+        else:
+            vis = renderer.tensor_to_bgr(output["render"][0])
         outname = image_io.imwrite(
             join(cfg.exp, cfg.split, render_type, f"{batch_idx:06d}.jpg"), vis)
         if "mask" in output and cfg.get("write_rgba", False):

@@ -275,6 +275,32 @@ class ImageDataset(ImageBase):
         return ret
 
 
+class DepthDataset(ImageDataset):
+    """ImageDataset with a 16-bit monocular depth map per image (item
+    "depth", float32 in [0, 1]). The map of an image is found by rewriting
+    its cached path: the images dir becomes depth_dir, the current scale
+    depth_scale, and ".png" is appended (cache/<depth_scale>/<depth_dir>/
+    <camname><ext>.png). Where it is absent, or images are not read, the
+    item holds the path instead."""
+
+    def __init__(self, depth_scale, depth_dir="depth", **kwargs):
+        super().__init__(**kwargs)
+        self.depth_scale = depth_scale
+        self.depth_dir = depth_dir
+
+    def __getitem__(self, index):
+        ret = super().__getitem__(index)
+        depthname = ret["imgname"].replace(self.image_dir, self.depth_dir)
+        depthname = depthname.replace(
+            f"{os.sep}{self.current_scale}{os.sep}{self.depth_dir}",
+            f"{os.sep}{self.depth_scale}{os.sep}{self.depth_dir}") + ".png"
+        if self.read_img and os.path.exists(depthname):
+            ret["depth"] = self.read_depth(depthname)
+        else:
+            ret["depth"] = depthname
+        return ret
+
+
 def _resize_nearest(img, width: int, height: int):
     """cv2.resize(..., INTER_NEAREST): source index floor(i * src / dst)."""
     H, W = img.shape[:2]

@@ -10,7 +10,9 @@ flat_slice and block-pruned) and the inference row layout
 `optimize_render_layout`, the init pass (`init_view`) and densification
 with its schedule (`update_by_iteration`): on the host (numpy, the
 Splitter) or on the device (model/densify_device.py), which give equal
-arrays from the same random draws.
+arrays from the same random draws. Past the optimizer's spill thresholds
+the Adam moments move to pinned host memory and `train_step` gathers and
+scatters the visible rows' moments around each step.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from ..ops import gaussian_math as gm
 from ..ops import pick_backend, pick_max_pairs
+from ..render.loss import draw_patch_offsets
 from . import densify_device as dd
 from .block_render import block_size_for, build_block_cache, render_blocks
 from .corrector import Corrector
@@ -344,12 +347,20 @@ class LoG:
         )
 
     def _step_inputs(self, cam: dict, cfg: StepConfig, gt_image, background,
-                     mask_ignore, fg_mask) -> dict:
+                     mask_ignore, fg_mask, gt_depth) -> dict:
         """Device inputs of one step; advances the optimizer's step count
-        and the LR schedule."""
+        and the LR schedule. With cfg.render_depth the depth map goes to the
+        device and the patch corners are drawn from a numpy Generator seeded
+        with the global step (the JAX step's key is PRNGKey(step))."""
         dev = self.device
         self.optimizer.global_steps += 1
         step = self.optimizer.global_steps
+        depth = patches = None
+        if cfg.render_depth:
+            depth = torch.as_tensor(np.asarray(gt_depth, np.float32),
+                                    device=dev)
+            patches = draw_patch_offsets(*depth.shape,
+                                         np.random.default_rng(int(step)))
         host_lrs = _host_lrs(self.optimizer, step)
         self.lr = host_lrs.get("xyz", 0.0)
         if cfg.use_correction:
@@ -374,7 +385,7 @@ class LoG:
             mask_ignore=(torch.as_tensor(mask_ignore, device=dev)[None]
                          if mask_ignore is not None
                          else torch.ones((1, 1, 1), device=dev)),
-            gt_depth=None, fg_mask=fg_dev, bbox=bbox,
+            gt_depth=depth, depth_patches=patches, fg_mask=fg_dev, bbox=bbox,
         )
 
     def _apply_step(self, cfg: StepConfig, params, moments, counter,
@@ -402,14 +413,28 @@ class LoG:
         cfg = self._step_config(cam, vf["k_leaf"], vf["k_node"], mask_ignore,
                                 render_depth and gt_depth is not None,
                                 fg_mask)
+        m_slices = None
+        if cfg.spilled:
+            # the rows of the step's slice, in its compaction's order, read
+            # from the host moments before the step
+            host_index = _host_compact_index(
+                vf["keep_leaf"].cpu().numpy(), cfg.k_leaf, self.capacity)
+            if cfg.k_node > 0:
+                host_index = np.concatenate([host_index, _host_compact_index(
+                    vf["keep_node"].cpu().numpy(), cfg.k_node,
+                    self.capacity)])
+            m_slices = self.optimizer.host_gather(host_index)
         inputs = self._step_inputs(cam, cfg, gt_image, background,
-                                   mask_ignore, fg_mask)
+                                   mask_ignore, fg_mask, gt_depth)
         params, moments, counter, corr_state, metrics, aux = fused_train_step(
             self.gaussian.params(), self.optimizer.moments, self.counter.data,
             vf["keep_leaf"], vf["keep_node"], cam, view_index=view_index,
-            cfg=cfg, **inputs,
+            cfg=cfg, m_slices=m_slices, **inputs,
         )
         self._apply_step(cfg, params, moments, counter, corr_state)
+        if cfg.spilled:
+            self.optimizer.host_scatter(host_index, aux.pop("m_slices"),
+                                        aux.pop("update_mask"))
         return metrics, aux
 
     def training_iteration(self, camera: dict, gt_image, background,
@@ -425,6 +450,15 @@ class LoG:
         """
         from ..render.renderer import camera_device
 
+        if self.optimizer is not None and self.optimizer.spilled:
+            # spilled moments: the host needs the step's rows before the
+            # step, so the visibility pass runs on its own first
+            self.prepare_from_camera(camera)
+            return self.train_step(
+                camera, gt_image, background, mask_ignore=mask_ignore,
+                view_index=view_index, gt_depth=gt_depth,
+                render_depth=render_depth, fg_mask=fg_mask,
+            )
         if self._bucket is None:
             vf = self.prepare_from_camera(camera)
             self._bucket = (vf["k_leaf"], vf["k_node"])
@@ -458,7 +492,7 @@ class LoG:
                                 render_depth and gt_depth is not None,
                                 fg_mask)
         inputs = self._step_inputs(cam, cfg, gt_image, background,
-                                   mask_ignore, fg_mask)
+                                   mask_ignore, fg_mask, gt_depth)
         params, moments, counter, corr_state, metrics, aux = (
             fused_prepare_train_step(
                 self.gaussian.params(), self.optimizer.moments,
@@ -1268,6 +1302,14 @@ def _fg_mask_bbox(fg_mask, H: int, W: int, device):
                          max(int(cols[0]) - pad, 0), int(cols[-1]) + pad],
                         np.int32)
     return torch.from_numpy(m.astype(np.uint8))[None].to(device), bbox
+
+
+def _host_compact_index(keep: np.ndarray, k: int, cap: int) -> np.ndarray:
+    """The host's copy of a step's compacted index (_compact_slices_gather):
+    the kept rows ascending, cut or padded to k lanes with the sentinel
+    cap."""
+    idx = np.nonzero(keep)[0][:k].astype(np.int32)
+    return np.concatenate([idx, np.full(k - idx.shape[0], cap, np.int32)])
 
 
 def _host_lrs(optimizer: SparseOptimizer, step) -> dict:

@@ -13,8 +13,12 @@ Adam math: global-step bias correction, eps = 1e-15 added after the sqrt,
 betas (0.9, 0.999), in float32 in the JAX package's operation order. LR
 schedule: the Plenoxels log-lerp.
 
-The host-spill tier of the JAX package (moments in host memory past 50M
-points) is not ported yet (ROADMAP queue 1.2b).
+The host-spill tier: past `spill_points` live points the second moments,
+and past `spill_points_full` the first moments too, move to pinned host
+memory and leave the device (`maybe_spill`, `to_host`). A spilled step then
+gathers the visible rows' moments on the host (`host_gather`), uploads them
+into the step, runs the same per-key Adam ops on them as the device path,
+and scatters the updated rows back on the host (`host_scatter`).
 """
 from __future__ import annotations
 
@@ -104,7 +108,8 @@ def _padded(arr):
 
 
 def sparse_adam_step(params: dict, moments: dict, grads: dict, index,
-                     update_mask, global_step, lrs: dict, eps: float = 1e-15):
+                     update_mask, global_step, lrs: dict, eps: float = 1e-15,
+                     spilled: tuple = (), m_slices: dict | None = None):
     """Gather -> Adam -> scatter at the slice's global rows.
 
     params / moments: capacity-padded dicts (moments has 'exp_avg' and
@@ -112,42 +117,86 @@ def sparse_adam_step(params: dict, moments: dict, grads: dict, index,
     grads: (K, ...) gradients of the gathered slice.
     index: (K,) global row per lane; update_mask: (K,) bool. Masked lanes
       are redirected to the sentinel row and drop.
-    Returns (new_params, new_moments).
+    spilled / m_slices: for each moment kind in `spilled` the capacity
+      tensors are not on the device; m_slices[kind][key] holds the (K, ...)
+      rows the host gathered at `index`, and the updated rows come back in
+      a third return value for the host to scatter. Masked lanes of those
+      carry the gathered rows unchanged.
+    Returns (new_params, new_moments), and the updated slices if spilled.
     """
     cap = params[next(iter(params))].shape[0]
     idx = torch.where(update_mask, index.to(torch.int64), cap)
     new_params = dict(params)
-    new_m1 = dict(moments["exp_avg"])
-    new_m2 = dict(moments["exp_avg_sq"])
+    new_m = {mk: dict(moments[mk]) for mk in ("exp_avg", "exp_avg_sq")}
+    out_slices = {mk: {} for mk in spilled}
     for k in (k for k, g in grads.items() if g is not None and k in lrs):
         p2 = _padded(params[k])
-        m1_2 = _padded(moments["exp_avg"][k])
-        m2_2 = _padded(moments["exp_avg_sq"][k])
+        rows, padded = {}, {}
+        for mk in ("exp_avg", "exp_avg_sq"):
+            if mk in spilled:
+                rows[mk] = m_slices[mk][k]
+            else:
+                padded[mk] = _padded(moments[mk][k])
+                rows[mk] = padded[mk][idx]
         p_u, m1_u, m2_u, _ = adam_slice_update(
-            p2[idx], grads[k], m1_2[idx], m2_2[idx], global_step,
-            _lr(lrs, k, p2.device), eps=eps,
+            p2[idx], grads[k], rows["exp_avg"], rows["exp_avg_sq"],
+            global_step, _lr(lrs, k, p2.device), eps=eps,
         )
         # unique real rows; every dropped lane writes the spare row
         new_params[k] = p2.index_copy_(0, idx, p_u)[:cap]
-        new_m1[k] = m1_2.index_copy_(0, idx, m1_u)[:cap]
-        new_m2[k] = m2_2.index_copy_(0, idx, m2_u)[:cap]
-    return new_params, {"exp_avg": new_m1, "exp_avg_sq": new_m2}
+        mask = update_mask.reshape((-1,) + (1,) * (p_u.dim() - 1))
+        for mk, upd in (("exp_avg", m1_u), ("exp_avg_sq", m2_u)):
+            if mk in spilled:
+                out_slices[mk][k] = torch.where(mask, upd, rows[mk])
+            else:
+                new_m[mk][k] = padded[mk].index_copy_(0, idx, upd)[:cap]
+    if spilled:
+        return new_params, new_m, out_slices
+    return new_params, new_m
+
+
+def _host_tensor(shape, dtype, pinned: bool):
+    """An empty host tensor, in page-locked memory where pinned (which the
+    card copies from and to without staging, asynchronously)."""
+    return torch.empty(shape, dtype=dtype, pin_memory=pinned)
+
+
+def _wait_for(device) -> None:
+    """Block until the copies queued so far on device's current stream have
+    landed (an event on the stream, then a wait on it)."""
+    if torch.device(device).type == "cuda":
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
 
 
 class SparseOptimizer:
     """Host container: the device moments and the LR schedule config
     (xyz and scaling scheduled, per-key constant LRs otherwise, xyz scaled
-    by xyz_scale)."""
+    by xyz_scale), and the host-spill tier.
 
-    def __init__(self, optimize_keys, lr_dict, model, xyz_scale=None):
+    spill_points / spill_points_full: the live point counts past which
+    `maybe_spill` moves exp_avg_sq, then exp_avg too, to host memory (from
+    lr_dict where it names them, else the arguments). Spilled moments live
+    in `host_moments[kind][key]`, capacity-padded CPU tensors, pinned when
+    the model is on a CUDA device.
+    """
+
+    def __init__(self, optimize_keys, lr_dict, model, xyz_scale=None,
+                 spill_points=50_000_000, spill_points_full=100_000_000):
         self.optimize_keys = list(optimize_keys)
         self.lr_dict = dict(lr_dict)
         self.global_steps = 0
         self.xyz_scale = xyz_scale if xyz_scale is not None else 1.0
         self.max_steps = int(lr_dict.get("max_steps", 1_000_000))
         self.device = model.device
-        # moments in host memory past 50M points: queue 1.2b
+        self.spill_points = int(lr_dict.get("spill_points", spill_points))
+        self.spill_points_full = int(
+            lr_dict.get("spill_points_full", spill_points_full))
         self.spilled: tuple = ()
+        self.host_moments: dict = {}
+        # bytes the spilled steps moved: gathered rows up, updated rows down
+        self.transfer_bytes = {"h2d": 0, "d2h": 0}
         self.moments = {"exp_avg": {}, "exp_avg_sq": {}}
         for key in self.optimize_keys:
             if key not in model.keys:
@@ -160,6 +209,10 @@ class SparseOptimizer:
             f"{self.lr_dict.get('xyz', 0) * self.xyz_scale}->"
             f"{self.lr_dict.get('xyz_final', self.lr_dict.get('xyz', 0) * 0.01) * self.xyz_scale}"
         )
+
+    @property
+    def _pinned(self) -> bool:
+        return torch.device(self.device).type == "cuda"
 
     def lrs_for_step(self, step) -> dict:
         """Per-key LR (host floats) for a global step."""
@@ -182,24 +235,100 @@ class SparseOptimizer:
                 lrs[key] = float(np.float32(self.lr_dict[key]))
         return lrs
 
+    # ---------------------------------------------------------- host moves
+    def to_host(self, keys=("exp_avg_sq",)) -> None:
+        """Move moment kinds to host memory and free their device tensors.
+        The training step then runs in spill mode: host gather -> Adam on
+        the uploaded rows -> host scatter."""
+        for mk in keys:
+            if mk in self.spilled:
+                continue
+            host = {}
+            for k, v in self.moments[mk].items():
+                host[k] = _host_tensor(v.shape, v.dtype, self._pinned)
+                host[k].copy_(v)
+            self.host_moments[mk] = host
+            self.moments[mk] = {}  # frees the device copies
+            self.spilled = tuple(sorted(set(self.spilled) | {mk}))
+
     def maybe_spill(self, num_points: int) -> bool:
-        """The JAX package moves moments to host memory past 50M points;
-        the port raises there until that tier is ported."""
-        if num_points > int(self.lr_dict.get("spill_points", 50_000_000)):
-            raise NotImplementedError(
-                "host-spilled moments (past 50M points) are ROADMAP queue 1.2b"
-            )
-        return False
+        """Spill past the thresholds, each kind at most once; call after
+        the point count grew. Returns True if this call spilled."""
+        did = False
+        if num_points > self.spill_points and "exp_avg_sq" not in self.spilled:
+            print(f"[{self.__class__.__name__}] {num_points} points > "
+                  f"{self.spill_points}: spilling exp_avg_sq to host")
+            self.to_host(("exp_avg_sq",))
+            did = True
+        if (num_points > self.spill_points_full
+                and "exp_avg" not in self.spilled):
+            print(f"[{self.__class__.__name__}] {num_points} points > "
+                  f"{self.spill_points_full}: spilling exp_avg to host")
+            self.to_host(("exp_avg",))
+            did = True
+        return did
+
+    def host_gather(self, index: np.ndarray) -> dict:
+        """(K, ...) rows of every spilled kind at index, into pinned host
+        tensors (the step uploads them without blocking). Sentinel lanes
+        (index >= capacity) read the last row; the step masks them."""
+        out = {}
+        for mk in self.spilled:
+            rows = {}
+            for k, arr in self.host_moments[mk].items():
+                idx = torch.from_numpy(
+                    np.clip(np.asarray(index, np.int64), 0, arr.shape[0] - 1))
+                rows[k] = _host_tensor((idx.shape[0],) + arr.shape[1:],
+                                       arr.dtype, self._pinned)
+                torch.index_select(arr, 0, idx, out=rows[k])
+                self.transfer_bytes["h2d"] += rows[k].numel() * 4
+            out[mk] = rows
+        return out
+
+    def host_scatter(self, index: np.ndarray, slices: dict, mask) -> None:
+        """Write the step's updated (K, ...) rows back into the host tensors
+        where mask is True. The rows and the mask are copied off the device
+        into pinned memory without blocking, and the scatter waits for
+        those copies to land before it reads them."""
+        staged = {}
+        for mk, rows in slices.items():
+            staged[mk] = {}
+            for k, sl in rows.items():
+                buf = _host_tensor(sl.shape, sl.dtype,
+                                   sl.device.type == "cuda")
+                staged[mk][k] = buf.copy_(sl, non_blocking=True)
+                self.transfer_bytes["d2h"] += buf.numel() * 4
+        mask_h = _host_tensor(mask.shape, torch.bool,
+                              mask.device.type == "cuda")
+        mask_h.copy_(mask, non_blocking=True)
+        _wait_for(mask.device)
+        sel = mask_h.numpy()
+        idx = torch.from_numpy(np.asarray(index, np.int64)[sel])
+        sel = torch.from_numpy(sel)
+        for mk, rows in staged.items():
+            for k, sl in rows.items():
+                self.host_moments[mk][k].index_copy_(0, idx, sl[sel])
 
     def set_numpy(self, moments: dict, capacity: int) -> None:
         for mk in ("exp_avg", "exp_avg_sq"):
             for key, val in moments.get(mk, {}).items():
-                padded = pad_rows(np.asarray(val, np.float32), capacity)
-                self.moments[mk][key] = torch.from_numpy(
-                    np.ascontiguousarray(padded)
-                ).to(self.device)
+                padded = torch.from_numpy(np.ascontiguousarray(
+                    pad_rows(np.asarray(val, np.float32), capacity)))
+                if mk in self.spilled:
+                    host = _host_tensor(padded.shape, padded.dtype,
+                                        self._pinned)
+                    self.host_moments[mk][key] = host.copy_(padded)
+                else:
+                    self.moments[mk][key] = padded.to(self.device)
 
     def to_numpy(self, num_points: int) -> dict:
-        return {mk: {k: v[:num_points].cpu().numpy() for k, v in d.items()}
-                for mk, d in self.moments.items()}
-
+        out = {}
+        for mk in ("exp_avg", "exp_avg_sq"):
+            if mk in self.spilled:
+                # copies: host_scatter updates the host tensors in place
+                out[mk] = {k: v[:num_points].numpy().copy()
+                           for k, v in self.host_moments[mk].items()}
+            else:
+                out[mk] = {k: v[:num_points].cpu().numpy()
+                           for k, v in self.moments[mk].items()}
+        return out

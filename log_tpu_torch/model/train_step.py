@@ -3,9 +3,12 @@ counterpart of log_tpu/model/train_step.py.
 
 Training: `fused_train_step` (and `fused_prepare_train_step`, which runs the
 visibility pass first) is slice compaction -> activation + SH -> the tiled
-render with densification stats -> 0.8 L1 + 0.2 SSIM -> autograd backward
-(K2 and the plain-torch VJPs of the binning) -> non-finite guard -> counter
-update -> sparse or dense Adam -> scale clamp -> per-view gain Adam. The JAX
+render with densification stats -> 0.8 L1 + 0.2 SSIM (+ with render_depth a
+second render of (camera depth, world z, 1) and the depth patch loss of
+render/loss.py) -> autograd backward (K2 and the plain-torch VJPs of the
+binning) -> non-finite guard -> counter update -> sparse or dense Adam (with
+spilled moments, on the rows the host gathered) -> scale clamp -> per-view
+gain Adam. The JAX
 package runs it as one jitted executable with donated buffers; here it runs
 eagerly, and every update builds new tensors after the backward has used
 the saved ones. The slice bucket (k_leaf, k_node) and the pair budget are
@@ -36,6 +39,7 @@ from ..ops.projection import SplatCols, project_gaussians_cols
 from ..ops.rasterize_tiled import rasterize_tiled
 from ..ops.sh import eval_sh, sh_to_rgb
 from ..ops.ssim import ssim_loss, ssim_map
+from ..render.loss import depth_patch_loss
 from .counter import update_counter
 from .sparse_optimizer import dense_adam_step, sparse_adam_step
 from .tensor_tree import flat_cut, flat_cut_pre, traverse_cut
@@ -606,12 +610,16 @@ class StepConfig:
     backend: str = "reference"  # 'reference' | 'tiled'
     max_pairs: int = 1 << 18  # tiled backend pair capacity
     chunk: int = 32
-    render_depth: bool = False  # the depth loss: ROADMAP queue 1.2b
+    # the depth loss: a second render with (camera depth, world z, 1) as
+    # its colors (K1 without stats) and the SSI patch loss against gt_depth
+    render_depth: bool = False
     # foreground-mask training: the GT composites over the step background
     # inside the mask and the loss is restricted to the mask's bbox (the L1
     # mean and the SSIM windows inside the bbox, with static shapes)
     crop_loss: bool = False
-    spilled: tuple = ()  # host-spilled moments: ROADMAP queue 1.2b
+    # moment kinds in host memory: the step takes their rows as m_slices
+    # and returns the updated rows (no identity fast path)
+    spilled: tuple = ()
     # identity fast path opt-out (LOG_TPU_IDENTITY_STEP=0), read when the
     # config is built
     identity_ok: bool = field(
@@ -622,19 +630,25 @@ class StepConfig:
 
 
 def _activate_and_rasterize(slices, offset, cam, background, lane_valid,
-                            cfg: StepConfig):
-    """Param-space slice -> physical -> rasterize. Differentiable."""
+                            cfg: StepConfig, colors=None):
+    """Param-space slice -> physical -> rasterize. Differentiable. With
+    `colors` (per-point, e.g. the depth pass's (camera depth, world z, 1))
+    in place of the SH colors, the render carries no stats: K1 without
+    stats on the tiled backend, whose VJP is K2."""
     scaling = torch.exp(slices["scaling"])
     opacity = torch.sigmoid(slices["opacity"][:, 0])
     rotation = slices["rotation"] / torch.linalg.norm(
         slices["rotation"], dim=-1, keepdim=True
     )
-    colors = sh_to_rgb(slices["colors"])
-    if cfg.sh_degree > 0 and "shs" in slices:
-        # view directions carry no gradient to the positions
-        dirs = _normalize_rows(slices["xyz"].detach()
-                               - cam["camera_center"][None])
-        colors = colors + eval_sh(dirs, slices["shs"], degree=cfg.sh_degree)
+    with_stats = colors is None
+    if with_stats:
+        colors = sh_to_rgb(slices["colors"])
+        if cfg.sh_degree > 0 and "shs" in slices:
+            # view directions carry no gradient to the positions
+            dirs = _normalize_rows(slices["xyz"].detach()
+                                   - cam["camera_center"][None])
+            colors = colors + eval_sh(dirs, slices["shs"],
+                                      degree=cfg.sh_degree)
     kwargs = dict(
         xyz=slices["xyz"], colors=colors, opacity=opacity, scaling=scaling,
         rotation=rotation, means2d_offset=offset,
@@ -647,7 +661,7 @@ def _activate_and_rasterize(slices, offset, cam, background, lane_valid,
     )
     if cfg.backend == "tiled":
         return rasterize_tiled(**kwargs, max_pairs=cfg.max_pairs,
-                               with_stats=True)
+                               with_stats=with_stats)
     return rasterize_ref.rasterize(**kwargs, chunk=cfg.chunk)
 
 
@@ -785,15 +799,19 @@ def _train_step_core(params: dict, moments: dict, counter: dict, keep_leaf,
                      keep_node, cam: dict, gt, background, lrs: dict,
                      global_step, corr_state: dict, view_index: int,
                      mask_ignore, gt_depth, cfg: StepConfig, fg_mask=None,
-                     bbox=None):
+                     bbox=None, depth_patches=None, m_slices=None):
     """Returns (params, moments, counter, corr_state, metrics, aux); the
-    input dicts are left as they were."""
-    if cfg.render_depth:
-        raise NotImplementedError(
-            "the monocular depth loss (render/loss.py) is ROADMAP queue 1.2b")
-    if cfg.spilled:
-        raise NotImplementedError(
-            "host-spilled optimizer moments are ROADMAP queue 1.2b")
+    input dicts are left as they were.
+
+    gt_depth: (Hd, Wd) monocular inverse depth and depth_patches its patch
+    corners (rows, cols), both needed with cfg.render_depth. m_slices: the
+    host-gathered rows of the spilled moment kinds at the step's index
+    (pinned host tensors); aux then holds the updated rows ("m_slices") and
+    the lanes to scatter ("update_mask")."""
+    if cfg.render_depth and (gt_depth is None or depth_patches is None):
+        raise ValueError("render_depth needs gt_depth and depth_patches")
+    if cfg.spilled and m_slices is None:
+        raise ValueError(f"spilled moments {cfg.spilled} need m_slices")
     cap = params["xyz"].shape[0]
     dev = params["xyz"].device
     opt_params = {k: params[k] for k in cfg.opt_keys if k in params}
@@ -801,7 +819,7 @@ def _train_step_core(params: dict, moments: dict, counter: dict, keep_leaf,
     # dense rows ARE the slice (no compaction, dense masked Adam); row for
     # row equal to the compacted path
     identity_fast = (cfg.k_node == 0 and cfg.k_leaf == cap
-                     and cfg.identity_ok)
+                     and not cfg.spilled and cfg.identity_ok)
     with record_function("train_step.compact"):
         slices, index, lane_valid = _step_slices(
             opt_params, keep_leaf, keep_node, cfg, identity_fast)
@@ -820,6 +838,19 @@ def _train_step_core(params: dict, moments: dict, counter: dict, keep_leaf,
         with record_function("train_step.loss"):
             loss, l1, ssim = _loss(out, gt, background, correction,
                                    mask_ignore, fg_mask, bbox, cfg)
+        d_loss = None
+        if cfg.render_depth:
+            with record_function("train_step.depth"):
+                ones = torch.ones_like(out["depth_cam"])
+                depth_cols = torch.stack(
+                    [out["depth_cam"], leaves["xyz"][:, 2], ones], dim=-1)
+                aux_out = _activate_and_rasterize(
+                    leaves, offset, cam, background, lane_valid, cfg,
+                    colors=depth_cols)
+                d_loss = depth_patch_loss(aux_out["render"][0], gt_depth,
+                                          aux_out["render"][2],
+                                          *depth_patches)
+                loss = loss + 1.0 * d_loss
         wrt = [*leaves.values(), offset, correction]
         # the backward's kernels run on autograd's device thread, outside
         # this range; a trace attributes them by name
@@ -848,8 +879,18 @@ def _train_step_core(params: dict, moments: dict, counter: dict, keep_leaf,
     flag_vis = radii > 0
     update_mask = (lane_valid & flag_vis
                    & (torch.arange(K, device=dev) < cfg.k_leaf) & loss_ok)
+    out_slices = None
     with record_function("train_step.adam"):
-        if identity_fast:
+        if cfg.spilled:
+            # the host-gathered rows go up only now, after the backward, so
+            # they are not resident at its peak (pinned: non-blocking)
+            m_dev = {mk: {k: v.to(dev, non_blocking=True)
+                          for k, v in rows.items()}
+                     for mk, rows in m_slices.items()}
+            params, moments, out_slices = sparse_adam_step(
+                params, moments, g_slices, index, update_mask, global_step,
+                lrs, spilled=cfg.spilled, m_slices=m_dev)
+        elif identity_fast:
             params, moments = dense_adam_step(params, moments, g_slices,
                                               update_mask, global_step, lrs)
         else:
@@ -870,21 +911,27 @@ def _train_step_core(params: dict, moments: dict, counter: dict, keep_leaf,
         "ssim": ssim.detach(),
         "num_rendered": torch.sum(flag_vis & lane_valid),
     }
+    if d_loss is not None:
+        metrics["depth"] = d_loss.detach()
     if "pair_total" in out:  # the binning's unclamped demand (telemetry)
         metrics["pair_total"] = out["pair_total"]
     aux = {"render": out["render"].detach(), "radii": radii, "index": index}
+    if cfg.spilled:
+        aux["m_slices"] = out_slices
+        aux["update_mask"] = update_mask
     return params, moments, counter, corr_state, metrics, aux
 
 
 def fused_train_step(params, moments, counter, keep_leaf, keep_node, cam, gt,
                      background, lrs, global_step, corr_state, view_index,
                      mask_ignore, gt_depth, cfg: StepConfig, fg_mask=None,
-                     bbox=None):
+                     bbox=None, depth_patches=None, m_slices=None):
     """One training step on the keep masks of a prepared camera."""
     return _train_step_core(
         params, moments, counter, keep_leaf, keep_node, cam, gt, background,
         lrs, global_step, corr_state, view_index, mask_ignore, gt_depth, cfg,
-        fg_mask=fg_mask, bbox=bbox,
+        fg_mask=fg_mask, bbox=bbox, depth_patches=depth_patches,
+        m_slices=m_slices,
     )
 
 
@@ -896,7 +943,7 @@ def fused_prepare_train_step(params, moments, counter, tree_arrays, n_alive,
                              prep_backend: str, prep_max_pairs: int,
                              check_scale: int, cfg: StepConfig, fg_mask=None,
                              bbox=None, cut_method: str = "traverse",
-                             n_roots: int = 0):
+                             n_roots: int = 0, depth_patches=None):
     """Visibility + LoD cut + the training step.
 
     The (k_leaf, k_node) bucket in `cfg` comes from the PREVIOUS step's
@@ -914,7 +961,7 @@ def fused_prepare_train_step(params, moments, counter, tree_arrays, n_alive,
     params, moments, counter, corr_state, metrics, aux = _train_step_core(
         params, moments, counter, keep_leaf, keep_node, cam, gt, background,
         lrs, global_step, corr_state, view_index, mask_ignore, gt_depth, cfg,
-        fg_mask=fg_mask, bbox=bbox,
+        fg_mask=fg_mask, bbox=bbox, depth_patches=depth_patches,
     )
     metrics["counts"] = counts
     aux["keep_mask"] = keep_leaf | keep_node

@@ -9,7 +9,11 @@ where the backend is "reference"); validation calls it. `prepare_camera`
 gives the training step its camera and its background (random under
 `use_randback`, drawn from the caller's numpy Generator); the loss runs
 inside the training step (model/train_step.py). `MaskForeground` crops
-validation to the mask's box. The depth render is ROADMAP queue 1, item 6.
+validation to the mask's box. With `render_depth`, `vis` takes the
+two-phase render in either mode and renders (camera depth, world z, 1) as
+colors over a zero background after each frame, into preds "depth",
+"height" and "accmap"; `marigold_depth_vis` colors such a map with
+matplotlib's Spectral colormap from the port's own copy of its table.
 """
 from __future__ import annotations
 
@@ -20,6 +24,51 @@ import numpy as np
 import torch
 
 from ..utils import image_io
+
+# matplotlib's "Spectral" colormap (ColorBrewer's 11 classes) as 8-bit
+# anchors; matplotlib spaces them evenly over [0, 1] and interpolates a
+# 256-entry table between them (LinearSegmentedColormap.from_list)
+SPECTRAL_ANCHORS = (
+    (158, 1, 66), (213, 62, 79), (244, 109, 67), (253, 174, 97),
+    (254, 224, 139), (255, 255, 191), (230, 245, 152), (171, 221, 164),
+    (102, 194, 165), (50, 136, 189), (94, 79, 162),
+)
+LUT_SIZE = 256
+
+
+def spectral_lut(n: int = LUT_SIZE) -> np.ndarray:
+    """(n + 3, 3) float64 table: matplotlib's lookup table of the Spectral
+    colormap (its _create_lookup_table, in the same float64 operations),
+    then the colors below 0 (the first entry), above 1 (the last) and of
+    NaN (black)."""
+    y = np.asarray(SPECTRAL_ANCHORS, np.float64) / 255.0
+    x = np.linspace(0, 1, len(y)) * (n - 1)
+    xind = (n - 1) * np.linspace(0, 1, n)
+    ind = np.searchsorted(x, xind)[1:-1]
+    distance = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+    lut = np.concatenate([y[:1], distance[:, None] * (y[ind] - y[ind - 1])
+                          + y[ind - 1], y[-1:]])
+    lut = np.clip(lut, 0.0, 1.0)
+    return np.concatenate([lut, lut[:1], lut[-1:], np.zeros((1, 3))])
+
+
+def colormap_spectral(values) -> np.ndarray:
+    """RGB floats of matplotlib.colormaps["Spectral"](values)[..., :3] for a
+    float array: value * 256 truncated to an entry (1.0 the last), the
+    first entry below 0, the last above 1, black for NaN."""
+    xa = np.array(values, copy=True)
+    if xa.dtype.kind != "f":
+        raise TypeError(f"colormap_spectral takes floats, not {xa.dtype}")
+    xa *= LUT_SIZE
+    xa[xa == LUT_SIZE] = LUT_SIZE - 1
+    under, over, bad = xa < 0, xa >= LUT_SIZE, np.isnan(xa)
+    with np.errstate(invalid="ignore"):
+        xa = xa.astype(int)
+    xa[under] = LUT_SIZE
+    xa[over] = LUT_SIZE + 1
+    xa[bad] = LUT_SIZE + 2
+    return spectral_lut().take(xa, axis=0, mode="clip")
+
 
 CAMERA_KEYS = (
     "camera_center",
@@ -74,6 +123,17 @@ class BaseRender:
         return np.ascontiguousarray(vis)
 
     @staticmethod
+    def marigold_depth_vis(tensor, cmap="Spectral"):
+        """8-bit Spectral colors of a map normalized to [0, 1], in RGB
+        order (the JAX package writes these bytes with cv2.imwrite, which
+        reads them as BGR; the port's demo keeps the same bytes)."""
+        if cmap != "Spectral":
+            raise ValueError(f"only the Spectral colormap is kept: {cmap}")
+        if isinstance(tensor, torch.Tensor):
+            tensor = tensor.detach().cpu().numpy()
+        return BaseRender.float32_to_uint8(colormap_spectral(tensor))
+
+    @staticmethod
     def make_video(path, remove_image=False, fps=30):
         image_io.make_video(path, fps)
 
@@ -124,10 +184,11 @@ class NaiveRendererAndLoss(BaseRender):
 
     # ------------------------------------------------------------ inference
     @torch.no_grad()
-    def render_one(self, model, camera, background):
+    def render_one(self, model, camera, background, extra_colors=None):
         """Render of the LoD cut that `model.prepare_from_camera(camera)`
-        left in `model.visibility_flag`. Returns device tensors ('render'
-        (3, H, W), 'alpha' (H, W), ...)."""
+        left in `model.visibility_flag`, with the model's colors or, where
+        given, extra_colors (capacity, C). Returns device tensors ('render'
+        (C, H, W), 'alpha' (H, W), 'depth_cam' (capacity,), ...)."""
         from ..ops import pick_backend, pick_max_pairs, rasterize_ref
 
         cam = camera_device(camera, model.device)
@@ -137,7 +198,8 @@ class NaiveRendererAndLoss(BaseRender):
         colors = act.colors_activation(params, cam["camera_center"],
                                        model.gaussian.active_sh_degree)
         kwargs = dict(
-            xyz=params["xyz"], colors=colors,
+            xyz=params["xyz"],
+            colors=colors if extra_colors is None else extra_colors,
             opacity=act.opacity_activation(params["opacity"][:, 0]),
             scaling=act.scaling_activation(params["scaling"]),
             rotation=act.rotation_activation(params["rotation"]),
@@ -163,15 +225,15 @@ class NaiveRendererAndLoss(BaseRender):
     @torch.no_grad()
     def vis(self, batch, model, background=None):
         """Batch inference: per camera, one fused frame (eval mode) or the
-        two-phase render (training mode). Returns host arrays 'render'
-        (B, 3, H, W), 'alpha' and 'mask' (B, H, W), quantized to 8 bits on
-        the device like the JAX package."""
-        if self.render_depth:
-            raise NotImplementedError("the depth render is ROADMAP queue 1, "
-                                      "item 6")
+        two-phase render (training mode, or with render_depth). Returns host
+        arrays 'render' (B, 3, H, W), 'alpha' and 'mask' (B, H, W),
+        quantized to 8 bits on the device like the JAX package, and with
+        render_depth the float maps 'depth' (composited camera depth),
+        'height' (world z) and 'accmap' (accumulated opacity), (B, H, W),
+        rendered over a zero background."""
         preds = defaultdict(list)
         B = np.asarray(batch["camera"]["camera_center"]).shape[0]
-        fused = not getattr(model, "training", False)
+        fused = not (getattr(model, "training", False) or self.render_depth)
         for bn in range(B):
             camera, bg = self.prepare_camera(batch, bn, background)
             if fused:
@@ -185,6 +247,14 @@ class NaiveRendererAndLoss(BaseRender):
             alpha = alp8.cpu().numpy().astype(np.float32) / 255.0
             preds["alpha"].append(alpha)
             preds["mask"].append(alpha)
+            if self.render_depth:
+                xyz = model.gaussian.params()["xyz"]
+                cols = torch.stack([out["depth_cam"], xyz[:, 2],
+                                    torch.ones_like(xyz[:, 2])], dim=-1)
+                aux = self.render_one(model, camera, np.zeros(3, np.float32),
+                                      extra_colors=cols)["render"].cpu()
+                for c, key in enumerate(("depth", "height", "accmap")):
+                    preds[key].append(aux[c].numpy())
         return {key: np.stack(val) for key, val in preds.items()}
 
     def process_gt(self, batch):

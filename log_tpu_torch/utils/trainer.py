@@ -31,6 +31,7 @@ import torch
 
 from . import image_io
 from .config import load_object
+from .hbm import hbm_usage
 from .recorder import Recorder
 from .sampler import DataLoader, IndexSampler, IterationBasedSampler
 
@@ -374,11 +375,11 @@ class Trainer:
         """Device memory in MiB (in use and peak) on a CUDA device."""
         if self.device.type != "cuda":
             return
-        stats = torch.cuda.memory_stats(self.device)
+        usage = hbm_usage(self.device)
         self.recorder.log(self.global_iterations, "train/memory",
-                          stats.get("allocated_bytes.all.current", 0) / 2**20)
+                          usage["in_use_gb"] * 1024)
         self.recorder.log(self.global_iterations, "train/max_mem",
-                          stats.get("allocated_bytes.all.peak", 0) / 2**20)
+                          usage["peak_gb"] * 1024)
 
     def log_point_cloud(self, output):
         """The current points as a PLY (xyz, colors from the SH DC term)."""
