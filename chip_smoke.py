@@ -135,6 +135,32 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    frames, none constant, the first equal to marigold_depth_vis of vis's
    map); the first tree step after a densify held against the plain
    versions (K1 without stats and both K2 calls among them).
+14. sharded_step: in a one-rank NCCL process group (parallel/mesh.py's
+   initialize_distributed), the training snapshot (before its first step)
+   trained SHARDED_STEPS steps through ShardedExecutor.step (the tiled
+   backend, the root weight cull over the gathered capacity axis, one
+   camera a step) and through prepare_from_camera + LoG.train_step: params,
+   unit quaternions, moments and float counters held at
+   tests/test_parallel.py's single-chip tolerances, the integer counters
+   and every step's kept counts equal; step 0's kernel calls (K1 in both
+   modes, K3, K4, K2) held against the plain versions; the step median
+   beside the single-card median, the peak, launches per step and the
+   bytes handed to each collective per step. With 2+ cards, min(count, 4)
+   NCCL ranks (parallel/launch.py) of one camera against one rank of that
+   many cameras; with one card the script says so;
+15. sharded_render: the trained tree in the strided layout over the
+   serving orbit at one rank, at SH 1 (slices, K3) and SH 0 (columns, K4 +
+   K3p), every frame held against the single-card flat_slice frame
+   without the weight cull (tests/test_sharded_render.py's bound), the
+   exchange bucket sized from the frames' pair demand, no overflow; frame
+   0's kernel calls against the plain versions (the band's K1 without
+   stats); the frame time beside the serving flat_slice frame's;
+16. cli_parallel: config/synthetic's scene (200 Gaussians, 16 views at
+   120x160, .png) made by the port's make_synthetic_scene, and
+   config/synthetic_parallel's 200 steps through log_tpu_torch.apps.train
+   with train.parallel.enable on (one NCCL rank started from torchrun's
+   variables) and off, each with final_val: the two final-vals within 1
+   dB, every sharded step launching K4, K3, K1 and K2.
 With --profile, 4 more frames of the generic, flat_slice and block phases
 and 4 more training steps run under torch.profiler, each after its timed
 run, and 4 steps of the cli run's tree stage (steps 600-603) are traced in
@@ -330,6 +356,35 @@ CLI_DEPTH_OPTS = ["dataset.module", "LoG.dataset.colmap.DepthDataset",
 # the demo's depth and height maps normalized over the scene's range (its
 # Gaussians lie in [-1, 1]^3, the cameras 4 from the center)
 CLI_DEPTH_RANGES = {"depth": (2.0, 6.0), "height": (-1.0, 1.0)}
+# sharded_step: the training snapshot through ShardedExecutor.step (one
+# NCCL rank, one camera a step, the tiled backend, the check cull) and
+# through prepare_from_camera + LoG.train_step, SHARDED_STEPS steps each;
+# held at tests/test_parallel.py's single-chip tolerances (params, unit
+# quaternions, moments, float counters) with the integer counters and the
+# kept counts equal. Where the machine has 2+ cards, min(count, 4) ranks of
+# one camera for MULTI_RANK_STEPS steps against one rank of that many
+# cameras, at test_sharded_n1_equals_n4's tolerances
+SHARDED_STEPS, MULTI_RANK_STEPS = 12, 4
+SHARDED_TOL = {"params": (2e-4, 2e-5), "rotation": (1e-3, 2e-4),
+               "moments": (2e-3, 1e-7), "counters": (2e-3, 1e-5)}
+MULTI_RANK_TOL = {"params": (1e-4, 1e-6), "rotation": (1e-3, 2e-4),
+                  "loss": 1e-5}
+SHARDED_EXACT = ("visible_count", "create_steps", "area_sum")
+SHARDED_CLOSE = ("weights_max", "weights_sum", "grad_sum")
+# sharded_render: the same tree in the strided layout over the serving
+# orbit at one rank, at SH 1 (slices, K3) and SH 0 (columns, K4 + K3p),
+# held against the single-card flat_slice frame without the weight cull at
+# tests/test_sharded_render.py's bound
+SHARDED_RENDER_SH = (1, 0)
+BAND_ATOL, BAND_OUTLIERS, BAND_MAX = 2e-3, 1e-3, 2e-2
+# cli_parallel: config/synthetic's scene (the verify recipe's sizes) and
+# config/synthetic_parallel's 200 steps through the port's CLI with
+# train.parallel.enable on (one NCCL rank) and off; final-vals within 1 dB
+CLI_PAR_SCENE = "output/chip_par_scene"
+CLI_PAR_EXP = "output/chip_par_{}/log"
+CLI_PAR_CFG = "config/synthetic_parallel/train.yml"
+CLI_PAR_SCENE_ARGS = [CLI_PAR_SCENE, "200", "16", "120", "160", ".png"]
+CLI_PAR_PSNR_DB = 1.0
 
 
 def make_cam(theta, height=18.0, radius=22.0, h=H, w=W, focal=1400.0):
@@ -2829,6 +2884,496 @@ def _cli_depth_phase(plain_final, log, device):
     return out, launches, n_calls, errs, failures
 
 
+# ------------------------------------------------------- parallel phases
+def free_port() -> int:
+    """A free TCP port on localhost for a process group's store."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def one_rank_group(log):
+    """A one-rank NCCL process group on card 0, started by
+    initialize_distributed and destroyed after."""
+    import torch
+
+    from log_tpu_torch.parallel.mesh import initialize_distributed
+
+    dev = initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                                 device="cuda")
+    log(f"process group: {torch.distributed.get_backend()}, world "
+        f"{torch.distributed.get_world_size()}, rank device {dev}")
+    try:
+        yield dev
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def step_views(batches):
+    """(camera, GT (3, H, W) uint8) of each training view."""
+    return [({k: np.asarray(v)[0] for k, v in b["camera"].items()},
+             np.ascontiguousarray(b["image"][0].transpose(2, 0, 1)))
+            for b in batches]
+
+
+def hold_states(want, got, tol, label, log):
+    """Two state_dicts (snapshot_of) after the same steps: params at
+    tol["params"] (rotations as unit quaternions at tol["rotation"]), with
+    tol["moments"] the moments (rotation's skipped: its norm is a null
+    space of the loss) and the counters (SHARDED_EXACT equal, SHARDED_CLOSE
+    at tol["counters"]). Returns (largest |d| by group, failures)."""
+    fails, worst = [], {}
+    n = want["gaussian.xyz"].shape[0]
+    if got["gaussian.xyz"].shape[0] != n:
+        return {}, [f"{label}: {got['gaussian.xyz'].shape[0]} points, want "
+                    f"{n}"]
+    for key, a in want.items():
+        group, name = key.split(".", 1)[0], key.rsplit(".", 1)[-1]
+        b = got[key]
+        if group == "gaussian":
+            rt_, at_ = tol["params"]
+            if name == "rotation":
+                rt_, at_ = tol["rotation"]
+                a = a / np.linalg.norm(a, axis=-1, keepdims=True)
+                b = b / np.linalg.norm(b, axis=-1, keepdims=True)
+        elif group == "optimizer" and "moments" in tol and name != "rotation":
+            if key == "optimizer.global_steps":
+                rt_, at_ = 0.0, 0.0
+            else:
+                rt_, at_ = tol["moments"]
+        elif group == "counter" and "counters" in tol and (
+                name in SHARDED_EXACT or name in SHARDED_CLOSE):
+            rt_, at_ = ((0.0, 0.0) if name in SHARDED_EXACT
+                        else tol["counters"])
+        else:
+            continue
+        d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+        worst[group] = max(worst.get(group, 0.0), float(d.max(initial=0.0)))
+        if not np.all(d <= at_ + rt_ * np.abs(np.asarray(a, np.float64))):
+            fails.append(f"{label}: {key} differs by {float(d.max()):.3g}")
+    log(f"{label}: largest |d| by group {worst}; "
+        f"{'held' if not fails else fails}")
+    return worst, fails
+
+
+def _sharded_run(model, views, steps, cams_per_device, comm, calls=None,
+                 record=None):
+    """`steps` ShardedExecutor.step calls over the views, batch after batch
+    of cams_per_device * ranks cameras (fixed black backgrounds); the first
+    step's kernel calls recorded (copies) into `calls`. Returns (executor,
+    per-step rows)."""
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.parallel.executor import ShardedExecutor
+
+    ex = ShardedExecutor(model, cams_per_device=cams_per_device,
+                         backend="tiled", check_cull=True, comm=comm)
+    B, rows = ex.batch, []
+    for s in range(steps):
+        sel = [(s * B + j) % len(views) for j in range(B)]
+        before, moved = dict(kernels.LAUNCHES), dict(comm.bytes)
+        ctx = (recording(calls, copy=True) if s == 0 and calls is not None
+               else contextlib.nullcontext())
+        with ctx:
+            (met, counts), sec = timed(lambda: ex.step(
+                [views[i][0] for i in sel], [views[i][1] for i in sel],
+                view_indices=[i % TRAIN_VIEWS for i in sel],
+                backgrounds=[np.zeros(3, np.float32)] * B))
+        rows.append({"step": s, "ms": sec * 1e3, "loss": float(met["loss"]),
+                     "counts": counts.tolist(), "bucket": list(ex._bucket),
+                     "ran": {k: kernels.LAUNCHES[k] - before[k]
+                             for k in kernels.LAUNCHES},
+                     "bytes": {k: comm.bytes[k] - moved.get(k, 0)
+                               for k in comm.bytes}})
+    return ex, rows
+
+
+def sharded_step_phase(snapshot, batches, device, log):
+    """The training snapshot (3.24M points, capacity 4,194,304, 1920x1088,
+    perturbed) trained SHARDED_STEPS steps through the single-card step
+    (prepare_from_camera + LoG.train_step) and through ShardedExecutor.step
+    in this process's one-rank NCCL group (the tiled backend, the check
+    cull), one camera a step, black backgrounds; the two held against each
+    other (hold_states, kept counts equal), step 0's kernel calls against
+    the plain versions. Returns (json, launches, held errors, held K1/K2
+    rows, the sharded model, failures)."""
+    import torch
+
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.parallel.comm import Comm
+    from log_tpu_torch.utils import hbm
+
+    failures = []
+    views = step_views(batches)
+    bg = np.zeros(3, np.float32)
+    ref = train_twin(snapshot, device)
+    ref_rows = []
+    for s in range(SHARDED_STEPS):
+        camera, gt = views[s % TRAIN_VIEWS]
+
+        def one():
+            vf = ref.prepare_from_camera(camera)
+            met, _ = ref.train_step(camera, gt, bg, view_index=s % TRAIN_VIEWS)
+            return list(vf["counts"]), float(met["loss"])
+        (counts, loss), sec = timed(one)
+        ref_rows.append({"ms": sec * 1e3, "counts": counts, "loss": loss})
+    want = snapshot_of(ref)
+    del ref
+    torch.cuda.empty_cache()
+
+    model = train_twin(snapshot, device)
+    comm = Comm()
+    calls = {}
+    kernels.reset_launches()
+    (ex, rows), mem = hbm.call_stats(
+        lambda: _sharded_run(model, views, SHARDED_STEPS, 1, comm, calls))
+    launches = dict(kernels.LAUNCHES)
+    ex.sync_to_model()
+    got = snapshot_of(model)
+    del ex
+    torch.cuda.empty_cache()
+
+    worst, fails = hold_states(want, got, SHARDED_TOL,
+                               "sharded_step vs single-card", log)
+    failures += fails
+    counts_eq = [r["counts"][0] for r in rows] == [r["counts"]
+                                                  for r in ref_rows]
+    if not counts_eq:
+        failures.append("sharded_step: kept counts differ from the "
+                        "single-card step's: "
+                        f"{[r['counts'][0] for r in rows]} vs "
+                        f"{[r['counts'] for r in ref_rows]}")
+    held_rows = {}
+    errs, hfail = hold_calls(calls, "sharded_step step 0", log, held_rows)
+    failures += hfail
+    del calls
+    ms = [r["ms"] for r in rows[1:]]
+    ref_ms = [r["ms"] for r in ref_rows[1:]]
+    steady = rows[1:]
+    per_step = {k: sum(r["ran"][k] for r in steady) / len(steady)
+                for k in launches}
+    bytes_per_step = {k: sum(r["bytes"].get(k, 0) for r in steady)
+                      / len(steady) for k in rows[-1]["bytes"]}
+    log("sharded_step: ms " + " ".join(f"{r['ms']:.1f}" for r in rows)
+        + "; single-card ms " + " ".join(f"{r['ms']:.1f}" for r in ref_rows))
+    log(f"sharded_step: step median {np.median(ms):.3f} ms against the "
+        f"single-card median {np.median(ref_ms):.3f} ms (steps 1-"
+        f"{SHARDED_STEPS - 1}); peak memory {mem['peak_bytes'] / 2**30:.3f} "
+        f"GiB; launches per step {per_step}; bytes handed to each "
+        f"collective per step {bytes_per_step}; kept counts equal "
+        f"{counts_eq}; buckets {[r['bucket'] for r in rows]}; losses "
+        + " ".join(f"{r['loss']:.5f}" for r in rows))
+    uneven = [r["step"] for r in rows if r["ran"]["rasterize_bwd"] != 1
+              or min(r["ran"][k] for k in ("rasterize_fwd", "expand_with_keys",
+                                           "pack_rows")) < 2]
+    if uneven:
+        failures.append(f"sharded_step: steps without K2 once and K1, K3, "
+                        f"K4 at least twice: {uneven}")
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        failures.append("sharded_step: non-finite loss")
+    return ({"steps": rows, "single_card_steps": ref_rows,
+             "step_ms_median": float(np.median(ms)),
+             "single_card_step_ms_median": float(np.median(ref_ms)),
+             "peak_bytes": mem["peak_bytes"], "launches_per_step": per_step,
+             "collective_bytes_per_step": bytes_per_step,
+             "worst_abs_diff": worst, "counts_equal": counts_eq},
+            launches, errs, held_rows, model, failures)
+
+
+def _multi_rank_main(rank, world, device, path):
+    """One rank of the multi-card run: the snapshot at `path`, MULTI_RANK
+    steps of one camera. Returns the losses and, on rank 0, the state."""
+    import pickle
+
+    from log_tpu_torch.parallel.comm import Comm
+
+    with open(path, "rb") as f:
+        snapshot, views = pickle.load(f)
+    model = train_twin(snapshot, device)
+    ex, rows = _sharded_run(model, views, MULTI_RANK_STEPS, 1, Comm())
+    ex.sync_to_model()
+    return {"losses": [r["loss"] for r in rows],
+            "ms": [r["ms"] for r in rows],
+            "state": snapshot_of(model) if rank == 0 else None}
+
+
+def multi_rank_phase(snapshot, batches, device, log):
+    """Where the machine has two cards or more: min(count, 4) NCCL ranks
+    (parallel/launch.py), one camera each, MULTI_RANK_STEPS steps, against
+    one rank of that many cameras on the same batches (this process's
+    group). Returns (json, failures)."""
+    import os
+    import pickle
+
+    import torch
+
+    from log_tpu_torch.parallel.comm import Comm
+    from log_tpu_torch.parallel.launch import spawn
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"sharded_step multi-rank: needs two cards, found {cards}")
+        return {"cards": cards, "ran": False}, []
+    n = min(cards, 4)
+    views = step_views(batches)
+    path = os.path.join("build", "chip_smoke_multi_rank.pkl")
+    os.makedirs("build", exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump((snapshot, views), f)
+    try:
+        (ranks, sec) = timed(lambda: spawn(_multi_rank_main, n, "cuda",
+                                           args=(path,), timeout_s=900))
+    finally:
+        os.remove(path)
+    model = train_twin(snapshot, device)
+    ex, rows = _sharded_run(model, views, MULTI_RANK_STEPS, n, Comm())
+    ex.sync_to_model()
+    want = snapshot_of(model)
+    del ex, model
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in rows]
+    failures = []
+    if not np.allclose(ranks[0]["losses"], losses,
+                       rtol=MULTI_RANK_TOL["loss"]):
+        failures.append(f"multi-rank losses {ranks[0]['losses']} vs one "
+                        f"rank's {losses}")
+    _, fails = hold_states(want, ranks[0]["state"], MULTI_RANK_TOL,
+                           f"{n} ranks x 1 camera vs 1 rank x {n}", log)
+    failures += fails
+    for key in ("counter.visible_count", "counter.area_sum"):
+        if not np.array_equal(want[key], ranks[0]["state"][key]):
+            failures.append(f"multi-rank: {key} differs")
+    log(f"sharded_step multi-rank: {n} ranks on {cards} cards, "
+        f"{MULTI_RANK_STEPS} steps in {sec:.1f} s (step ms rank 0 "
+        f"{ranks[0]['ms']}), losses {ranks[0]['losses']} vs one rank's "
+        f"{losses}")
+    return {"cards": cards, "ran": True, "ranks": n,
+            "losses": ranks[0]["losses"], "one_rank_losses": losses,
+            "step_ms": ranks[0]["ms"]}, failures
+
+
+def sharded_render_phase(model, device, log):
+    """The trained tree in the strided layout over the serving orbit
+    (1920x1088, FRAMES frames) at this process's one rank: at SH 1 (the
+    slice flow, K3) and SH 0 (the column flow, K4 + K3p), every frame held
+    against the single-card flat_slice frame without the weight cull
+    (tests/test_sharded_render.py's bound), the bucket sized from the
+    frames' pair demand, no overflow; frame 0's kernel calls against the
+    plain versions; the frame time beside the serving flat_slice frame
+    (render_fused) of the same call. Returns (json, launches by SH, held
+    errors, held K1 rows, failures)."""
+    import torch
+
+    from log_tpu_torch.model.train_step import fused_prepare_render
+    from log_tpu_torch.ops import kernels, pick_max_pairs
+    from log_tpu_torch.parallel.comm import Comm
+    from log_tpu_torch.parallel.sharded_render import (ShardedRenderConfig,
+                                                       interleave_shard_rows,
+                                                       sharded_render_frame)
+    from log_tpu_torch.render.renderer import camera_device
+
+    failures, out, launches, errs, held_rows = [], {}, {}, {}, {}
+    comm = Comm()
+    n = comm.world
+    model.eval()
+    model.tree.cut_method = "flat_slice"
+    model._refresh_device_caches()
+    params, tree = model.gaussian.params(), model.tree_device()
+    params_s = interleave_shard_rows(params, n)
+    tree_s = interleave_shard_rows(tree, n)
+    orbit = orbit_batches(FRAMES)
+    cameras = [{k: np.asarray(v)[0] for k, v in b["camera"].items()}
+               for b in orbit]
+    cams = [camera_device(c, device) for c in cameras]
+    bg = torch.zeros(3, device=device)
+    mr = float(model.tree.min_resolution_pixel)
+    cap_sort = min(model.capacity,
+                   -(-model.num_points // (1 << 18)) * (1 << 18))
+    sh_max = model.gaussian.active_sh_degree
+    for sh in SHARDED_RENDER_SH:
+        refs = [fused_prepare_render(
+            params, tree, cam, model.num_points, model._leaf_opt_dev, mr,
+            model.current_depth, bg, H, W, k_visible=cap_sort, sh_degree=sh,
+            stage_has_tree=True, num_levels=int(model.tree.depth.max()) + 1,
+            backend="tiled", max_pairs=1 << 23, cut_method="flat_slice",
+            n_roots=model.n_roots_bucket, prep_backend="tiled",
+            check_cull=False, pack_pairs=False, cap_sort=cap_sort)
+            for cam in cams]
+        cuts = [int(r[2][:2].sum()) for r in refs]
+        demand = [int(r[3]) for r in refs]
+        k_local = min(-(-int(max(cuts) * 1.1) // 32768) * 32768,
+                      model.capacity // n)
+        pairs = pick_max_pairs(int(max(demand) * 1.1), per_point=1)
+        cfg = ShardedRenderConfig(
+            image_height=H, image_width=W, n_devices=n, k_local=k_local,
+            max_pairs_local=pairs, bucket_pairs=pairs, sh_degree=sh,
+            min_res_pixel=mr, layout="strided")
+        frames, calls = [], {}
+        kernels.reset_launches()
+        for i, cam in enumerate(cams):
+            ctx = recording(calls) if i == 0 else contextlib.nullcontext()
+            with ctx:
+                (img, alpha, stats), sec = timed(lambda: sharded_render_frame(
+                    params_s, tree_s, cam, model.num_points, mr,
+                    model.current_depth, bg, cfg, comm))
+            d = torch.maximum((img - refs[i][0]).abs().max(),
+                              (alpha - refs[i][1]).abs().max())
+            share = float(((img - refs[i][0]).abs() > BAND_ATOL)
+                          .float().mean())
+            st = stats.tolist()
+            frames.append({"ms": sec * 1e3, "cut": st[0], "pairs": st[1],
+                           "overflow": st[2], "max_abs_diff": float(d),
+                           "share_past_atol": share,
+                           "finite": bool(torch.isfinite(img).all())})
+        ran = dict(kernels.LAUNCHES)
+        launches[f"sharded_render_sh{sh}"] = ran
+        e, f = hold_calls(calls, f"sharded_render SH {sh} frame 0", log,
+                          held_rows)
+        failures += f
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        del calls
+        # the serving flat_slice frame of the same call (weight cull, K5)
+        model.gaussian.active_sh_degree = sh
+        model._render_bucket = model._pair_bucket = model._frame = None
+        serve = [timed(lambda c=c: model.render_fused(c, np.zeros(3)))[1]
+                 * 1e3 for c in cameras]
+        model.gaussian.active_sh_degree = sh_max
+        ms = [x["ms"] for x in frames[WARMUP:]]
+        bad = [i for i, x in enumerate(frames)
+               if x["overflow"] or not x["finite"] or x["cut"] != cuts[i]
+               or x["max_abs_diff"] >= BAND_MAX
+               or x["share_past_atol"] >= BAND_OUTLIERS]
+        need = ("pack_rows", "rasterize_fwd",
+                "expand_with_keys" if sh else "expand_packed")
+        log(f"sharded_render SH {sh}: k_local {k_local}, pairs {pairs}, "
+            f"bucket {pairs}; frame ms " + " ".join(f"{x['ms']:.1f}"
+                                                     for x in frames)
+            + f"; mean {np.mean(ms):.3f} ms (frames {WARMUP}-{FRAMES - 1}) "
+            f"against the flat_slice frame's {np.mean(serve[WARMUP:]):.3f} "
+            f"ms; cuts {[x['cut'] for x in frames]}, pairs exchanged "
+            f"{[x['pairs'] for x in frames]}, overflow "
+            f"{max(x['overflow'] for x in frames)}; max |sharded - single| "
+            f"{max(x['max_abs_diff'] for x in frames):.3g}, share past "
+            f"{BAND_ATOL} {max(x['share_past_atol'] for x in frames):.3g}; "
+            f"launches {ran}")
+        if bad:
+            failures.append(f"sharded_render SH {sh}: frames {bad} overflow, "
+                            f"differ from the single-card frame or are not "
+                            f"finite")
+        if min(ran[k] for k in need) < FRAMES:
+            failures.append(f"sharded_render SH {sh}: kernels {need} not "
+                            f"launched every frame: {ran}")
+        out[f"sh{sh}"] = {"k_local": k_local, "pairs": pairs,
+                          "frames": frames,
+                          "frame_ms_mean": float(np.mean(ms)),
+                          "flat_slice_frame_ms": serve,
+                          "flat_slice_frame_ms_mean":
+                              float(np.mean(serve[WARMUP:]))}
+        del refs
+        torch.cuda.empty_cache()
+    return out, launches, errs, held_rows, failures
+
+
+def cli_parallel_phase(log):
+    """config/synthetic's scene (made by the port's make_synthetic_scene)
+    trained on config/synthetic_parallel's schedule through the port's CLI
+    with train.parallel.enable on (one NCCL rank, from torchrun's
+    variables) and off, then final_val of each. Returns (json, launches by
+    run, steps by run, failures)."""
+    import os
+    import shutil
+
+    from log_tpu_torch.apps import final_val, make_synthetic_scene, train
+    from log_tpu_torch.model.level_of_gaussian import LoG
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.utils.trainer import Trainer
+
+    failures, out, launches, n_steps = [], {}, {}, {}
+    for d in (CLI_PAR_SCENE, os.path.dirname(CLI_PAR_EXP.format("on")),
+              os.path.dirname(CLI_PAR_EXP.format("off"))):
+        shutil.rmtree(d, ignore_errors=True)
+    events, steps = [], []
+    real_update, real_step = LoG.update_by_iteration, Trainer.training_step
+
+    def update(self, iteration, global_iteration):
+        n0 = self.num_points
+        changed = real_update(self, iteration, global_iteration)
+        if self.num_points != n0 or changed:
+            events.append((self.stage_name, iteration, n0, self.num_points))
+        return changed
+
+    def step(self, model, data):
+        res = real_step(self, model, data)
+        steps.append(self.executor is not None)
+        return res
+
+    with blocked_imports(log), \
+            patched(LoG, {"update_by_iteration": update}), \
+            patched(Trainer, {"training_step": step}):
+        _, scene_s = timed(lambda: make_synthetic_scene.main(
+            CLI_PAR_SCENE_ARGS))
+        for mode in ("on", "off"):
+            exp = CLI_PAR_EXP.format(mode)
+            opts = ["root", CLI_PAR_SCENE, "PLYNAME",
+                    CLI_PAR_SCENE + "/sparse/0/sparse.npz", "exp", exp,
+                    "dataset.args.ext", ".png", "val_dataset.args.ext",
+                    ".png", "train.parallel.enable", mode]
+            env = ({"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                    "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+                   if mode == "on" else {})
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            del events[:], steps[:]
+            kernels.reset_launches()
+            try:
+                trainer, train_s = timed(lambda: train.main(
+                    ["--cfg", CLI_PAR_CFG, "split", "train"] + opts))
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        del os.environ[k]
+                    else:
+                        os.environ[k] = v
+            launches[f"cli_parallel_{mode}"] = dict(kernels.LAUNCHES)
+            n_steps[f"cli_parallel_{mode}"] = len(steps)
+            sharded = bool(steps) and all(steps)
+            record, fv_s = timed(lambda: final_val.main(
+                [CLI_PAR_CFG, os.path.join(exp, "model_tree.pth")] + opts))
+            out[mode] = {"train_s": train_s, "final_val_s": fv_s,
+                         "steps": len(steps), "sharded_steps": sharded,
+                         "points": trainer.model.num_points,
+                         "densify_events": list(events),
+                         "final_val": {k: record[k] for k in CLI_VAL_KEYS}}
+            log(f"cli_parallel {mode}: {len(steps)} steps (sharded {sharded}) "
+                f"in {train_s:.2f} s, {trainer.model.num_points} points, "
+                f"densify events {events}; final_val {out[mode]['final_val']} "
+                f"in {fv_s:.2f} s; launches {launches[f'cli_parallel_{mode}']}")
+            del trainer
+    out["scene_s"] = scene_s
+    on, off = out["on"], out["off"]
+    d_db = abs(on["final_val"]["psnr"] - off["final_val"]["psnr"])
+    log(f"cli_parallel: final-val PSNR on {on['final_val']['psnr']:.3f} / "
+        f"off {off['final_val']['psnr']:.3f} dB (|d| {d_db:.3f}), SSIM "
+        f"{on['final_val']['ssim']:.4f} / {off['final_val']['ssim']:.4f}")
+    if not on["sharded_steps"] or off["sharded_steps"] is not False:
+        failures.append("cli_parallel: enable on/off did not choose the "
+                        "sharded / single-device step")
+    if on["steps"] != off["steps"] or on["steps"] == 0:
+        failures.append(f"cli_parallel: {on['steps']} sharded steps vs "
+                        f"{off['steps']} single-device")
+    if d_db > CLI_PAR_PSNR_DB:
+        failures.append(f"cli_parallel: final-vals {d_db:.3f} dB apart")
+    ran = launches["cli_parallel_on"]
+    if ran["rasterize_bwd"] < on["steps"] or min(
+            ran[k] for k in STEP_KERNELS) < on["steps"]:
+        failures.append(f"cli_parallel on: launches {ran} in {on['steps']} "
+                        f"steps")
+    return out, launches, n_steps, failures
+
+
 def main() -> int:
     import torch
 
@@ -2994,6 +3539,22 @@ def main() -> int:
     spill_json, s_launches, sfail = spill_phase(snapshot, batches, device,
                                                 log)
     failures += sfail
+    # ------------------------------------------------ the parallel layer
+    with one_rank_group(log):
+        (ss_json, ss_launches, held["sharded_step"], ss_rows, ss_model,
+         ssfail) = sharded_step_phase(snapshot, batches, device, log)
+        failures += ssfail
+        ss_json["multi_rank"], mrfail = multi_rank_phase(snapshot, batches,
+                                                         device, log)
+        failures += mrfail
+        (sr_json, sr_launches, held["sharded_render"], sr_rows,
+         srfail) = sharded_render_phase(ss_model, device, log)
+        failures += srfail
+    del ss_model
+    for phase_rows in (ss_rows, sr_rows):
+        rows["rasterize_fwd"]["modes"] += phase_rows.get("rasterize_fwd", [])
+    rows["rasterize_bwd"]["sharded_step_calls"] = ss_rows.get(
+        "rasterize_bwd", [])
     del snapshot, batches
     torch.cuda.empty_cache()
     two_json, model, ts_launches, held["two_stage"], tfail = two_stage_phase(
@@ -3009,6 +3570,8 @@ def main() -> int:
     cd_json, cd_launches, cd_calls, held["cli_depth"], cdfail = \
         cli_depth_phase(cli_json["final_val"], log)
     failures += cdfail
+    cp_json, cp_launches, cp_steps, cpfail = cli_parallel_phase(log)
+    failures += cpfail
 
     log(json.dumps({
         "slice": slice_json,
@@ -3020,18 +3583,22 @@ def main() -> int:
         "growth": growth_json, "depth_step": depth_json,
         "spill": spill_json, "two_stage": two_json,
         "grown_frame": frame_json, "cli": cli_json, "cli_depth": cd_json,
+        "sharded_step": ss_json, "sharded_render": sr_json,
+        "cli_parallel": cp_json,
     }))
     kernels_json = []
     runs = dict(serve_runs, train=t_launches, growth=g_launches,
                 depth_step=d_launches, **s_launches, two_stage=ts_launches,
-                grown_frame=gf_launches, **cli_launches, **cd_launches)
+                grown_frame=gf_launches, **cli_launches, **cd_launches,
+                sharded_step=ss_launches, **sr_launches, **cp_launches)
     # main-path calls per phase: frames, training steps, or renders
     n_calls = dict({phase: FRAMES for phase in serve_runs},
                    train=TRAIN_STEPS, growth=GROWTH_STEPS,
                    depth_step=DEPTH_STEPS, spill_device=SPILL_STEPS,
                    spill=SPILL_STEPS, spill_after_densify=SPILL_AFTER_DENSIFY,
                    two_stage=len(two_json["steps"]), grown_frame=1,
-                   **cli_calls, **cd_calls)
+                   **cli_calls, **cd_calls, sharded_step=SHARDED_STEPS,
+                   **{k: FRAMES for k in sr_launches}, **cp_steps)
     # the growth phases' own calls held against the plain versions
     for phase, errs in held.items():
         for name, err in errs.items():

@@ -10,6 +10,18 @@ loop, frames under <exp>/<split>/<render_type> (rgb, or with render_type
 depth / height the map in Spectral colors) and video; the val split's gt/renders
 dumps per scale. --device (default cuda) is where the model, renderer and
 trainer run; asking for cuda where there is none is an error.
+
+Multi-device training (cfg.train.parallel, parallel/): one process per
+rank, started by torchrun,
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m log_tpu_torch.apps.train --cfg X.yml split train
+
+(or with LOG_TPU_COORDINATOR, LOG_TPU_NUM_PROCESSES and
+LOG_TPU_PROCESS_ID set). The process group starts before the model is built:
+NCCL with rank r on cuda:LOCAL_RANK, or gloo with --device cpu. Rank 0
+writes the exp dir. Without those variables the run has one rank, and
+train.parallel.enable on runs the sharded step on it.
 """
 from __future__ import annotations
 
@@ -19,6 +31,8 @@ from os.path import join
 import numpy as np
 import torch
 
+from ..parallel.comm import group_initialized
+from ..parallel.mesh import initialize_distributed
 from ..utils import image_io
 from ..utils.command import (copy_git_tracked_files, load_statedict,
                              update_global_variable)
@@ -145,10 +159,23 @@ def main(argv=None):
     args, cfg = Config.load_args(argv, usage="run")
     cfg = update_global_variable(cfg, cfg)
     device = resolve_device(args.device)
+    # a group started by the caller (parallel/launch.py) is used as it is
+    rank_device = (None if group_initialized()
+                   else initialize_distributed(device=device))
+    main_rank = not group_initialized() or torch.distributed.get_rank() == 0
+    try:
+        return _run(args, cfg, rank_device or device, main_rank)
+    finally:
+        if rank_device is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, cfg, device, main_rank: bool):
     exp = cfg.exp
     print("Write to {}".format(exp))
-    os.makedirs(exp, exist_ok=True)
-    if cfg.split == "train":
+    if main_rank:
+        os.makedirs(exp, exist_ok=True)
+    if cfg.split == "train" and main_rank:
         with open(os.path.join(exp, "config.yaml"), "w") as f:
             print(cfg, file=f)
     from ..utils.trainer import Trainer, seed_everything
@@ -156,7 +183,7 @@ def main(argv=None):
     seed_everything(666)
     model = load_object(cfg.model.module, cfg.model.args, device=device)
     if cfg.split == "train":
-        outdir = copy_git_tracked_files("./", exp)
+        outdir = copy_git_tracked_files("./", exp) if main_rank else None
         dataset = load_object(cfg.train.dataset.module, cfg.train.dataset.args)
         if "base_iter" in cfg:
             base_iter = cfg.base_iter

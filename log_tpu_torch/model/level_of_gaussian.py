@@ -287,7 +287,7 @@ class LoG:
             leaf_opt, float(self.tree.min_resolution_pixel),
             self.current_depth, cam["image_height"], cam["image_width"],
             stage_has_tree, num_levels,
-            backend=pick_backend(self.capacity, self.device),
+            backend=pick_backend(self.capacity, device=self.device),
             max_pairs=pick_max_pairs(self.capacity),
             check_scale=int(self.check_render_scale),
             cut_method=self.cut_method_train if stage_has_tree else "traverse",
@@ -340,7 +340,7 @@ class LoG:
             ),
             has_mask=mask_ignore is not None,
             opt_keys=tuple(self.gaussian.keys),
-            backend=pick_backend(k_total, self.device),
+            backend=pick_backend(k_total, device=self.device),
             max_pairs=pick_max_pairs(k_total),
             render_depth=render_depth, crop_loss=fg_mask is not None,
             spilled=self.optimizer.spilled,
@@ -500,7 +500,7 @@ class LoG:
                 float(self.tree.min_resolution_pixel), self.current_depth,
                 cam, view_index=view_index, stage_has_tree=stage_has_tree,
                 num_levels=num_levels,
-                prep_backend=pick_backend(self.capacity, self.device),
+                prep_backend=pick_backend(self.capacity, device=self.device),
                 prep_max_pairs=pick_max_pairs(self.capacity),
                 check_scale=int(self.check_render_scale), cfg=cfg,
                 cut_method=(self.cut_method_train if stage_has_tree
@@ -599,7 +599,7 @@ class LoG:
         cap_sort = min(self.capacity,
                        -(-self.num_points // (1 << 18)) * (1 << 18))
         k_vis = min(self._render_bucket, self.capacity, cap_sort)
-        backend = pick_backend(self.capacity, self.device)
+        backend = pick_backend(self.capacity, device=self.device)
         tree_arrays, num_levels = self._tree_args(stage_has_tree)
         max_pairs = pick_max_pairs(k_vis, per_point=6)
         frame_pairs = min(max_pairs, self._pair_bucket or max_pairs)

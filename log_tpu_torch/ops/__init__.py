@@ -11,12 +11,13 @@ import os
 import torch
 
 
-def pick_backend(num_points: int | None = None, device="cpu") -> str:
+def pick_backend(num_points: int | None = None, *, device) -> str:
     """The LOG_TPU_BACKEND override where it is set (on any device: the
     oracle run trains with "reference"); else 'tiled' on a CUDA device,
     and on the CPU the oracle for small scenes and the tiled path (plain
     versions of its kernels) above 16384 points, where O(P*HW) costs
-    more."""
+    more. `device` has no default: a call that does not say where it runs
+    would otherwise pick the oracle on the card for a small tree."""
     env = os.environ.get("LOG_TPU_BACKEND")
     if env:
         return env

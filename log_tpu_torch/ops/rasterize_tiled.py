@@ -884,6 +884,23 @@ class SortPermute(torch.autograd.Function):
         return out, None
 
 
+def sort_pairs(key_tile, key_depth, key_gid, values, num_tiles: int):
+    """Sort pair records by (tile, depth, gid): a stable sort by gid, then a
+    stable sort by the int64 key tile << 32 | order-preserving depth bits.
+    values: (R, A) payload rows, permuted through `SortPermute` (its VJP
+    scatters the cotangent back). num_tiles (the tail sentinel of
+    key_tile) is the JAX signature's; the sort needs no bound.
+    Returns (tile_sorted, gid_sorted, values_sorted, perm)."""
+    del num_tiles
+    _, by_gid = torch.sort(key_gid, stable=True)
+    key = ((key_tile[by_gid].to(torch.int64) << 32)
+           | _depth_order_bits(key_depth[by_gid]))
+    _, order = torch.sort(key, stable=True)
+    perm = by_gid[order]
+    return (key_tile[perm], key_gid[perm], SortPermute.apply(values, perm),
+            perm)
+
+
 class PackRows(torch.autograd.Function):
     """`pack_rows` (K4) with a VJP: row r's cotangent is g[r, :A]."""
 

@@ -214,7 +214,7 @@ class NaiveRendererAndLoss(BaseRender):
         )
         # the pair budget from the prepared cut's kept count
         k_budget = max(int(vf["counts"][0]) + int(vf["counts"][1]), 1)
-        if pick_backend(model.capacity, model.device) == "tiled":
+        if pick_backend(model.capacity, device=model.device) == "tiled":
             from ..ops.rasterize_tiled import rasterize_tiled
 
             return rasterize_tiled(**kwargs,

@@ -16,6 +16,14 @@ the JAX package): the loader's sampler seeds, the random backgrounds and the
 random LoD pixel thresholds, so a config and seed give the JAX package's
 draws in the same order. A trainer made with an `exp` dir holds an exclusive
 lock on it for its life and records scalars in `<logdir>/scalars.jsonl`.
+
+With cfg.train.parallel (enable auto, on or off; cams_per_device, backend,
+check_cull, check_scale) the steps run through the sharded executor
+(parallel/executor.py): each loader batch is executor.batch cameras, one
+sharded step. Under a process group of several ranks every rank runs the
+same loop with the same draws; only rank 0 holds the exp lock and writes
+checkpoints, scalars, images and validation, and every rank reaches each
+sync, densify and collective.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import numpy as np
 import torch
 
 from . import image_io
+from ..parallel.comm import Comm
 from .config import load_object
 from .hbm import hbm_usage
 from .recorder import Recorder
@@ -47,24 +56,28 @@ class Trainer:
     def __init__(self, cfg, model, render, logdir=None, seed: int = 666):
         self.cfg = cfg if cfg is not None else {}
         self.exp = self.cfg.get("exp")
+        self.comm = Comm()
+        # rank 0 of a process group (or the only process) writes
+        self.is_main = self.comm.rank == 0
         self._exp_lock_fd = None
-        if self.exp is not None:
+        if self.exp is not None and self.is_main:
             os.makedirs(self.exp, exist_ok=True)
             self._acquire_exp_lock()
-        if "train" in self.cfg and (self.cfg["train"].get("parallel") or
-                                    {}).get("enable") in (True, "true", "on"):
-            raise NotImplementedError(
-                "cfg.train.parallel (multi-device training) is ROADMAP "
-                "queue 1, item 7")
+        # multi-device training: cfg.train.parallel (see parallel/)
+        self.parallel_cfg = (dict(self.cfg.train.get("parallel", {}) or {})
+                             if "train" in self.cfg else {})
+        self.executor = None
         self.model = model
         self.render = render
         self.device = model.device
-        self.recorder = Recorder(logdir if logdir is not None else self.exp)
+        self.recorder = Recorder(
+            (logdir if logdir is not None else self.exp)
+            if self.is_main else None)
         self.check_val()
         self.check_overlook()
         self.log_interval = self.cfg.get("log_interval", 1000)
         self.save_interval = self.cfg.get("save_interval", 100_000)
-        self.save_vis = self.cfg.get("save_vis", True)
+        self.save_vis = self.cfg.get("save_vis", True) and self.is_main
         self.global_iterations = 0
         self.rng = np.random.default_rng(seed)
         # device-resident GT cache, keyed by (view, shape), up to a byte
@@ -91,6 +104,49 @@ class Trainer:
         os.write(fd, f"{os.getpid()}\n".encode())
         os.fsync(fd)
         self._exp_lock_fd = fd
+
+    # ----------------------------------------------------------- parallel
+    def _parallel_requested(self) -> int:
+        """The rank count of the sharded step, or 0 for the single-device
+        step: enable "auto" (the default) when the group has more than one
+        rank, "on" at any size (one rank too), off never. n_devices, where
+        the config sets it, must be the group's size: one device per
+        rank."""
+        if not self.parallel_cfg:
+            return 0  # opt-in: the cfg.train.parallel block
+        enable = self.parallel_cfg.get("enable", "auto")
+        if enable in (False, "false", "off"):
+            return 0
+        n = int(self.parallel_cfg.get("n_devices") or self.comm.world)
+        if n != self.comm.world:
+            raise ValueError(f"train.parallel.n_devices {n} in a group of "
+                             f"{self.comm.world} ranks (one device per rank)")
+        if enable in (True, "true", "on"):
+            return max(n, 1)
+        return n if n > 1 else 0
+
+    def _make_executor(self):
+        n = self._parallel_requested()
+        if not n:
+            self.executor = None
+            return
+        from ..parallel.executor import ShardedExecutor
+
+        pcfg = self.parallel_cfg
+        self.executor = ShardedExecutor(
+            self.model, n_devices=n,
+            cams_per_device=int(pcfg.get("cams_per_device", 1)),
+            backend=pcfg.get("backend"),
+            check_cull=bool(pcfg.get("check_cull", True)),
+            check_scale=pcfg.get("check_scale"), comm=self.comm)
+        print(f"[Trainer] multi-device training: {n} ranks x "
+              f"{self.executor.cams_per_device} cams (backend "
+              f"{self.executor.backend})")
+
+    def _sync_parallel(self):
+        """The executor's state back into the model (every rank)."""
+        if self.executor is not None:
+            self.executor.sync_to_model()
 
     def close(self):
         """Release the exp lock and close the scalar log."""
@@ -141,6 +197,9 @@ class Trainer:
     def train_loader(self, dataset, args=None, base_iter=1):
         stage = args if args is not None else self.cfg.train.loader.args
         batch_size = stage.get("batch_size", 16)
+        if self.executor is not None:
+            # data-parallel: one loader batch per sharded step
+            batch_size = self.executor.batch
         iterations = stage.get("iterations", 1024) * base_iter
         sampler = IterationBasedSampler(
             dataset, iterations * batch_size,
@@ -189,12 +248,52 @@ class Trainer:
         self._gt_dev_cache[key] = dev
         return dev
 
+    def _training_step_parallel(self, model, data):
+        """A whole loader batch as one sharded step. Every rank draws the
+        backgrounds and LoD jitters of all B cameras, in the single-device
+        order, so the ranks' generators stay in step."""
+        if "mask_ignore" in data or "depth" in data:
+            raise ValueError("mask_ignore and depth training run on the "
+                             "single-device step only (turn "
+                             "train.parallel off)")
+        B = np.asarray(data["camera"]["camera_center"]).shape[0]
+        cameras, gts, view_indices, backgrounds, min_res = [], [], [], [], []
+        for bn in range(B):
+            camera, background = self.render.prepare_camera(
+                data, bn, None, is_train=True, rng=self.rng)
+            cameras.append(camera)
+            backgrounds.append(background)
+            gt = np.asarray(data["image"][bn]).transpose(2, 0, 1)
+            if gt.dtype != np.uint8:
+                gt = (np.clip(gt, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+            gts.append(gt)
+            view_indices.append(int(np.asarray(data["index"])[bn]))
+            if getattr(self.render, "use_rand_radius", False):
+                min_res.append(self._rand_radius_jitter())
+            else:
+                min_res.append(model.tree.min_resolution_pixel)
+        metrics, _counts = self.executor.step(
+            cameras, gts, view_indices=view_indices, backgrounds=backgrounds,
+            min_res=min_res)
+        output = {"metrics": metrics, "loss_dev": metrics["loss"]}
+        if self.global_iterations % 10 == 0:
+            loss = float(metrics["loss"])
+            self.recorder.log(self.global_iterations, "train/loss", loss)
+            for key in ("l1", "ssim"):
+                self.recorder.log(self.global_iterations, f"train/loss_{key}",
+                                  float(metrics[key]))
+            return True, output, loss
+        return True, output, metrics["loss"]
+
     def training_step(self, model, data):
         """One loader batch of training steps. Returns (ok, output, loss):
         output holds the last camera's metrics (device scalars), render and
         GT; loss is a host float every 10th global iteration (the logging
         cadence, which also records the losses) and the device scalar
-        otherwise."""
+        otherwise. Under cfg.train.parallel the batch is one sharded
+        step."""
+        if self.executor is not None:
+            return self._training_step_parallel(model, data)
         B = np.asarray(data["camera"]["camera_center"]).shape[0]
         output = {}
         for bn in range(B):
@@ -248,7 +347,8 @@ class Trainer:
         """The init pass: every training view (cameras only) lowers the
         points' radius3d_min; then up to 3 renders of the initial model."""
         dataset.read_img = False
-        os.makedirs(join(self.exp, "init"), exist_ok=True)
+        if self.is_main:
+            os.makedirs(join(self.exp, "init"), exist_ok=True)
         if "init" in self.cfg.train:
             dataset.set_state(**self.cfg.train.init.get("dataset_state", {}))
             self.model.at_init_start()
@@ -446,9 +546,10 @@ class Trainer:
             if "render_state" in stage:
                 self.render.set_state(**stage.render_state)
             self.model.training_setup()
+            self._make_executor()
             trainloader = self.train_loader(dataset, stage.loader.args,
                                             base_iter=self.model.base_iter)
-            if self.val is not None:
+            if self.val is not None and self.is_main:
                 self.make_validation(self.global_iterations + 1)
             self.start_time = time.time()
             loss_window = []
@@ -474,20 +575,35 @@ class Trainer:
                         loss_window = []
                 if self.val is not None and \
                         (iteration + 1) % self.cfg.val.iteration == 0:
-                    self.make_validation(self.global_iterations)
-                if self.overlook is not None and self.check_iteration(
-                        stage_name, iteration + 1, self.cfg.overlook.iteration):
+                    self._sync_parallel()
+                    if self.is_main:
+                        self.make_validation(self.global_iterations)
+                if self.overlook is not None and self.is_main and \
+                        self.check_iteration(stage_name, iteration + 1,
+                                             self.cfg.overlook.iteration):
                     self.make_overlook()
-                if self.overlook_oneframe is not None and (
+                if self.overlook_oneframe is not None and self.is_main and (
                         iteration % self.overlook_oneframe_freq == 0):
                     self.make_overlook_oneframe()
                 if (iteration + 1) % self.save_interval == 0:
                     name = join(self.exp, "model_latest.pth")
-                    print("Save checkpoint...: ", name)
-                    self.save_ckpt(name)
+                    self._sync_parallel()
+                    if self.is_main:
+                        print("Save checkpoint...: ", name)
+                        self.save_ckpt(name)
                 if (iteration + 1) < n_batches:
-                    if self.model.update_by_iteration(iteration,
-                                                      self.global_iterations):
+                    # the executor's state goes through the model only
+                    # where the schedule changes it (every rank: the
+                    # refresh checks that the ranks' models agree)
+                    mutates = (self.executor is not None
+                               and self.model.densify_due(iteration))
+                    if mutates:
+                        self.executor.sync_to_model()
+                    flag_update = self.model.update_by_iteration(
+                        iteration, self.global_iterations)
+                    if mutates:
+                        self.executor.refresh_from_model()
+                    if flag_update:
                         need_log = True
                         self.recorder.log(self.global_iterations,
                                           "train/num_points",
@@ -496,9 +612,12 @@ class Trainer:
                     self.recorder.log(self.global_iterations, "train/lr",
                                       self.model.lr)
                 self.global_iterations += 1
-            self.save_ckpt(join(self.exp, f"model_{stage_name}.pth"))
+            self._sync_parallel()
+            if self.is_main:
+                self.save_ckpt(join(self.exp, f"model_{stage_name}.pth"))
 
     def log_in_training(self, batch_idx, batch_total, data, loss, output):
+        self._sync_parallel()  # the model's repr reads its own state
         global_time = time.time() - self.global_start_time
         self.recorder.log(self.global_iterations, "train/time", global_time)
         current_time = time.time() - getattr(self, "start_time", time.time())
@@ -508,10 +627,10 @@ class Trainer:
         self.recorder.log(self.global_iterations, "train/num_points",
                           self.model.num_points)
         self.log_device_memory()
-        if self.cfg.get("log_pointcloud", False):
+        if self.cfg.get("log_pointcloud", False) and self.is_main:
             self.log_point_cloud(output)
-        if not self.save_vis:
-            return
+        if not self.save_vis or "render" not in output:
+            return  # the sharded step returns no render
         vis = np.hstack([self.render.tensor_to_bgr(output["gt"]),
                          self.render.tensor_to_bgr(output["render"])])
         image_io.imwrite(os.path.join(

@@ -28,6 +28,9 @@ def test_package_imports_without_jax():
     assert "log_tpu_torch.ops.rasterize_tiled" in names
     assert "log_tpu_torch.model.level_of_gaussian" in names
     assert "log_tpu_torch.apps.train" in names
+    for name in ("comm", "mesh", "launch", "sharded_step", "executor",
+                 "sharded_render"):
+        assert f"log_tpu_torch.parallel.{name}" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

@@ -23,11 +23,11 @@ def test_backend_override_is_read_on_cuda(monkeypatch):
     """A torch.device("cuda") needs no GPU."""
     monkeypatch.setenv("LOG_TPU_BACKEND", "reference")
     for n in SIZES:
-        assert ops.pick_backend(n, torch.device("cuda")) == "reference"
-        assert ops.pick_backend(n, "cuda") == "reference"
+        assert ops.pick_backend(n, device=torch.device("cuda")) == "reference"
+        assert ops.pick_backend(n, device="cuda") == "reference"
     monkeypatch.delenv("LOG_TPU_BACKEND")
     for n in SIZES:
-        assert ops.pick_backend(n, "cuda") == "tiled"
+        assert ops.pick_backend(n, device="cuda") == "tiled"
 
 
 @pytest.mark.parametrize("env", [None, "reference", "tiled"])
@@ -37,7 +37,20 @@ def test_backend_matches_jax_on_cpu(monkeypatch, env):
     else:
         monkeypatch.setenv("LOG_TPU_BACKEND", env)
     for n in SIZES:
-        assert ops.pick_backend(n, "cpu") == ops_jax.pick_backend(n), n
+        assert ops.pick_backend(n, device="cpu") == ops_jax.pick_backend(n), n
+
+
+def test_backend_needs_a_device(monkeypatch):
+    """No CPU default: a call that does not say where it runs raises, and a
+    CUDA device takes the tiled path at every size (the oracle never runs
+    on the card unless LOG_TPU_BACKEND asks for it)."""
+    monkeypatch.delenv("LOG_TPU_BACKEND", raising=False)
+    with pytest.raises(TypeError):
+        ops.pick_backend(100)
+    with pytest.raises(TypeError):
+        ops.pick_backend(100, "cuda")
+    for n in SIZES:
+        assert ops.pick_backend(n, device=torch.device("cuda", 0)) == "tiled"
 
 
 # ------------------------------------------------ the oracle's chunk remat

@@ -328,6 +328,15 @@ def test_trainer_exp_lock_and_parallel(tmp_path):
         Trainer(cfg, _Model(), None)
     first.close()
     Trainer(cfg, _Model(), None).close()
-    par = config.CfgNode({"train": {"parallel": {"enable": True}}})
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        Trainer(par, _Model(), None)
+    # cfg.train.parallel (log_tpu_torch/parallel): "on" takes the sharded
+    # step at any group size, one rank too; "auto" only past one rank
+    for enable, want in ((True, 1), ("on", 1), ("auto", 0), ("off", 0)):
+        par = config.CfgNode({"train": {"parallel": {"enable": enable}}})
+        trainer = Trainer(par, _Model(), None)
+        assert trainer._parallel_requested() == want, enable
+        trainer.close()
+    # one device per rank: n_devices must be the group's size
+    par = config.CfgNode({"train": {"parallel": {"enable": "on",
+                                                 "n_devices": 2}}})
+    with pytest.raises(ValueError, match="one device per rank"):
+        Trainer(par, _Model(), None)._parallel_requested()
