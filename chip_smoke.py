@@ -161,6 +161,35 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    with train.parallel.enable on (one NCCL rank started from torchrun's
    variables) and off, each with final_val: the two final-vals within 1
    dB, every sharded step launching K4, K3, K1 and K2.
+17. viewer (run after the serving checks, on a fresh copy of the serving
+   tree): log_tpu_torch/apps/viewer.py's ViewerState (1920x1080, focal 1.2
+   W, the mean point as center, SH 1) behind make_handler in a
+   ThreadingHTTPServer on 127.0.0.1 (a free port, stopped at the end); GET
+   / and a 404; 24 GET /render at their own (yaw, pitch, dist, offset)
+   after 2 warm-up requests, the launch counts reset just before them; per
+   request the host latency (request sent to body read), render_one's
+   device time (CUDA events), the JPEG encode's time, the pair demand
+   against the budget and the launches (K4, K3 and K1 each, no K2 or K5,
+   no overflow); every decoded JPEG equal to its camera's direct frame
+   encoded alike; request 0's frame against its all-plain rerun and its
+   kernel calls against the plain versions;
+18. vanilla (after the viewer): BASELINE.json configs[1], the tree's 600k
+   roots as a BaseGaussian (create_from_record of their activated values,
+   SH 1) over the 12-frame orbit at 1920x1088 through
+   NaiveRendererAndLoss.vis (the frustum mask, then render_one with the
+   capacity's pair budget): no overflow, K4, K3 and K1 once per frame;
+   frame 0 against its all-plain rerun and its kernel calls against the
+   plain versions; then log_tpu_torch.apps.check_viewer --oneshot on the
+   card;
+19. viewer_cli (after cli): make_state of Config.load_args on the cli
+   phase's config and model_tree_full.pth (the viewer's own entry, --device
+   cuda), its warm-up frame, 4 requests through the real handler;
+20. tools (after viewer_cli): log_tpu_torch.apps.test_dataset and
+   test_pointcloud on the cli scene (5 frames each, written under
+   output/chip_tools) and log_tpu_torch.apps.calibration.read_colmap on a
+   small COLMAP model written by the port's writers, each as python -m in
+   a subprocess and checked by its outputs (their launches, in other
+   processes, are not counted).
 With --profile, 4 more frames of the generic, flat_slice and block phases
 and 4 more training steps run under torch.profiler, each after its timed
 run, and 4 steps of the cli run's tree stage (steps 600-603) are traced in
@@ -385,6 +414,18 @@ CLI_PAR_EXP = "output/chip_par_{}/log"
 CLI_PAR_CFG = "config/synthetic_parallel/train.yml"
 CLI_PAR_SCENE_ARGS = [CLI_PAR_SCENE, "200", "16", "120", "160", ".png"]
 CLI_PAR_PSNR_DB = 1.0
+# viewer: the HTTP viewer (log_tpu_torch/apps/viewer.py) over the serving
+# tree at the screen a 1080p cfg.viewer sets (focal 1.2 W, its default),
+# VIEWER_REQUESTS GET /render at their own poses after VIEWER_WARMUP
+VIEWER_H, VIEWER_W = 1080, 1920
+VIEWER_REQUESTS, VIEWER_WARMUP = 24, 2
+# the split of a request's latency (request_telemetry)
+TELEMETRY_MS = ("prepare_ms", "render_ms", "bgr_ms", "encode_ms")
+# viewer_cli: make_state on the cli phase's config and checkpoint, requests
+# through the real handler; tools: the port's test_dataset, test_pointcloud
+# and read_colmap as subprocesses, their outputs under TOOLS_OUT
+VIEWER_CLI_REQUESTS = 4
+TOOLS_OUT = "output/chip_tools"
 
 
 def make_cam(theta, height=18.0, radius=22.0, h=H, w=W, focal=1400.0):
@@ -3374,6 +3415,472 @@ def cli_parallel_phase(log):
     return out, launches, n_steps, failures
 
 
+# ------------------------------------------ viewer, vanilla, viewer_cli, tools
+def decode_jpeg(data):
+    """BGR uint8 of JPEG bytes (cv2, else PIL): a check, not on the path."""
+    try:
+        import cv2
+
+        return cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    except ImportError:
+        import io
+
+        from PIL import Image
+
+        with Image.open(io.BytesIO(data)) as im:
+            return np.asarray(im.convert("RGB"))[:, :, ::-1].copy()
+
+
+@contextlib.contextmanager
+def serving(state):
+    """A ThreadingHTTPServer over make_handler(state) on 127.0.0.1 (a free
+    port) in a thread; yields a GET function (path -> (status, content
+    type, body, host ms)); the server is shut down on exit."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from log_tpu_torch.apps.viewer import make_handler
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    # no proxy for localhost, whatever the environment says
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path):
+        t0 = time.perf_counter()
+        try:
+            with opener.open(base + path, timeout=120) as resp:
+                body = resp.read()
+                status, ctype = resp.status, resp.headers["Content-Type"]
+        except urllib.error.HTTPError as err:
+            body, status, ctype = b"", err.code, None
+        return status, ctype, body, (time.perf_counter() - t0) * 1e3
+
+    try:
+        yield get
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+
+
+def render_path(yaw, pitch, dist, offset):
+    return (f"/render?yaw={yaw!r}&pitch={pitch!r}&dist={dist!r}"
+            f"&cx={offset[0]!r}&cy={offset[1]!r}&cz={offset[2]!r}")
+
+
+@contextlib.contextmanager
+def request_telemetry(renderer, model, rec):
+    """The latest frame's split into rec: prepare_ms (host clock around
+    model.prepare_from_camera, to a synchronize), render_ms (CUDA events
+    around render_one) with its pair demand and budget, bgr_ms (host clock
+    around tensor_to_bgr: the 8-bit BGR on the host) and encode_ms (host
+    clock around encode_jpeg); wrappers on the instances and on image_io's
+    function, removed on exit."""
+    import torch
+
+    from log_tpu_torch.utils import image_io
+
+    real_prep, real_one = model.prepare_from_camera, renderer.render_one
+    real_bgr, real_encode = renderer.tensor_to_bgr, image_io.encode_jpeg
+
+    def host_timed(key, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec[key] = (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    def one(*args, **kwargs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real_one(*args, **kwargs)
+        e1.record()
+        e1.synchronize()
+        rec["render_ms"] = e0.elapsed_time(e1)
+        rec["pair_total"] = int(out["pair_total"])
+        rec["max_pairs"] = int(out["max_pairs"])
+        return out
+
+    model.prepare_from_camera = host_timed("prepare_ms", real_prep)
+    renderer.render_one = one
+    renderer.tensor_to_bgr = host_timed("bgr_ms", real_bgr)
+    try:
+        with patched(image_io, {"encode_jpeg": host_timed("encode_ms",
+                                                          real_encode)}):
+            yield rec
+    finally:
+        del model.prepare_from_camera, renderer.render_one
+        del renderer.tensor_to_bgr
+
+
+def viewer_poses(n, seed=SEED):
+    """n (yaw, pitch, dist, offset) views of the synthetic tree, each its
+    own: a turn around the center, looking down 0.45-0.95 rad from 16-32
+    units, the target moved up to 6 units over the ground."""
+    rng = np.random.default_rng(seed + 10)
+    return [(2 * math.pi * i / n + float(rng.uniform(-0.1, 0.1)),
+             float(rng.uniform(0.45, 0.95)), float(rng.uniform(16.0, 32.0)),
+             tuple(float(v) for v in np.append(rng.uniform(-6, 6, 2), 0.0)))
+            for i in range(n)]
+
+
+def viewer_requests(get, state, poses, log, label):
+    """GET /render of each pose after VIEWER_WARMUP warm-up requests, the
+    launch counts set to 0 just before them and read just after; per
+    request the host latency, render_one's device time, the encode time,
+    the pair demand and budget, the launches and the decoded frame.
+    Returns (requests, launches, decoded frames, failures)."""
+    from log_tpu_torch.ops import kernels
+
+    fails, rec = [], {}
+    with request_telemetry(state.renderer, state.model, rec):
+        for pose in poses[:VIEWER_WARMUP]:
+            get(render_path(*pose))
+        kernels.reset_launches()
+        reqs, frames = [], []
+        for i, pose in enumerate(poses):
+            before = dict(kernels.LAUNCHES)
+            rec.clear()
+            status, ctype, body, ms = get(render_path(*pose))
+            ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+            if status != 200 or ctype != "image/jpeg":
+                fails.append(f"{label} request {i}: {status} {ctype}")
+                continue
+            frames.append(decode_jpeg(body))
+            reqs.append({"pose": pose, "latency_ms": ms, "bytes": len(body),
+                         **rec, "launches": ran})
+            if (ran["pack_rows"] < 1 or ran["expand_with_keys"] < 1
+                    or ran["rasterize_fwd"] < 1 or ran["rasterize_bwd"]
+                    or ran["rasterize_fwd_packed"]):
+                fails.append(f"{label} request {i} launched {ran}")
+            if rec.get("pair_total", 0) > rec.get("max_pairs", 0):
+                fails.append(f"{label} request {i}: pair demand "
+                             f"{rec.get('pair_total')} over the budget "
+                             f"{rec.get('max_pairs')}")
+        launches = dict(kernels.LAUNCHES)
+    lat = [r["latency_ms"] for r in reqs]
+    if lat:
+        split = ", ".join(f"{k[:-3]} {np.mean([r[k] for r in reqs]):.3f}"
+                          for k in TELEMETRY_MS)
+        log(f"{label}: {len(reqs)} requests after {VIEWER_WARMUP} warm-up, "
+            f"latency ms mean {np.mean(lat):.3f} (min {np.min(lat):.3f}, max "
+            f"{np.max(lat):.3f}), of which ms {split}; "
+            f"{1e3 / np.mean(lat):.2f} requests/s; pair demand "
+            f"{min(r['pair_total'] for r in reqs)}-"
+            f"{max(r['pair_total'] for r in reqs)} (budget "
+            f"{max(r['max_pairs'] for r in reqs)}); JPEG "
+            f"{np.mean([r['bytes'] for r in reqs]):.0f} bytes; launches "
+            f"{launches}")
+    return reqs, launches, frames, fails
+
+
+def latency_json(reqs):
+    keys = ("latency_ms",) + TELEMETRY_MS
+    return {f"{k}_{f.__name__}": float(f([r[k] for r in reqs]))
+            for k in keys for f in (np.mean, np.min, np.max)}
+
+
+def viewer_phase(device, log):
+    """The HTTP viewer over the 3.24M-point tree at 1920x1080: the port's
+    ViewerState and make_handler behind a ThreadingHTTPServer on
+    127.0.0.1, VIEWER_REQUESTS GET /render at their own poses (after
+    VIEWER_WARMUP), GET / and a 404; each decoded JPEG equal to the same
+    camera's direct frame encoded alike, request 0's frame with the plain
+    versions and its kernel calls against them. Returns (json, launches,
+    held kernel errors, K1 rows, failures)."""
+    import torch
+
+    from log_tpu_torch.apps import viewer
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+    from log_tpu_torch.utils import image_io
+
+    model = build_model(N_ROOTS, device)
+    renderer = NaiveRendererAndLoss(split="demo", device=device)
+    center = model.gaussian.to_numpy(["xyz"])["xyz"].mean(axis=0)
+    state = viewer.ViewerState(model, renderer, VIEWER_H, VIEWER_W,
+                               focal=1.2 * VIEWER_W, center=center,
+                               znear=0.01, zfar=100.0)
+    poses = viewer_poses(VIEWER_REQUESTS)
+    t0 = time.perf_counter()
+    state.render_jpeg(0.0, 0.5, 4.0, np.zeros(3))  # as viewer.main does
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    with serving(state) as get:
+        page = get("/")
+        missing = get("/nothing")
+        reqs, launches, frames, failures = viewer_requests(
+            get, state, poses, log, "viewer")
+    peak = torch.cuda.max_memory_allocated()
+    if page[0] != 200 or page[1] != "text/html" or \
+            f'width="{VIEWER_W}" height="{VIEWER_H}"'.encode() not in page[2]:
+        failures.append(f"viewer: GET / answered {page[:2]}")
+    if missing[0] != 404:
+        failures.append(f"viewer: GET /nothing answered {missing[0]}")
+    for name in SERVING_KERNELS:
+        if launches[name] < VIEWER_REQUESTS:
+            failures.append(f"viewer: {name} launched {launches[name]} "
+                            f"times in {VIEWER_REQUESTS} requests")
+    # each decoded JPEG against the same camera's direct frame, encoded
+    # alike: equal pixels (the frame is deterministic); the JPEG's own loss
+    # is logged
+    jpeg_err = []
+    for i, (pose, img) in enumerate(zip(poses, frames)):
+        direct = state.render_bgr(pose[0], pose[1], pose[2],
+                                  np.asarray(pose[3]))
+        want = decode_jpeg(image_io.encode_jpeg(direct, viewer.JPEG_QUALITY))
+        if not np.array_equal(img, want) or direct.std() < 1.0:
+            failures.append(f"viewer: request {i}'s JPEG is not its "
+                            f"camera's direct frame (std {direct.std()})")
+        jpeg_err.append(float(np.abs(img.astype(np.float64) - direct).mean()))
+    # request 0's camera: its kernel calls, and the all-plain frame
+    pose = poses[0]
+    calls = {}
+    with recording(calls):
+        kern = state.render_bgr(pose[0], pose[1], pose[2], np.asarray(pose[3]))
+    with plain_versions():
+        plain = state.render_bgr(pose[0], pose[1], pose[2],
+                                 np.asarray(pose[3]))
+    diff = float(np.abs(plain.astype(np.float64) - kern).max()) / 255.0
+    log(f"viewer: warm-up frame {warm_s:.2f} s; peak memory "
+        f"{peak / 2**30:.3f} GiB; decoded JPEG vs direct frame mean abs "
+        f"{min(jpeg_err or [0]):.3f}-{max(jpeg_err or [0]):.3f} (8-bit); "
+        f"request 0 plain vs kernels max abs {diff:.4g}")
+    if diff > FRAME_MAX_ABS:
+        failures.append(f"viewer: plain frame differs by {diff}")
+    k_rows = {}
+    errs, f = hold_calls(calls, "viewer request 0", log, k_rows)
+    failures += f
+    out = {"requests": reqs, "peak_bytes": peak, "warmup_frame_s": warm_s,
+           "jpeg_mean_abs": jpeg_err, "plain_frame_max_abs": diff,
+           "points": model.num_points, "launches": launches,
+           **(latency_json(reqs) if reqs else {})}
+    return out, launches, errs, k_rows, failures
+
+
+def vanilla_phase(device, log):
+    """BASELINE.json configs[1], the vanilla 3DGS model: the tree's 600k
+    roots as a BaseGaussian (create_from_record, SH 1) over the serving
+    orbit at 1920x1088 through NaiveRendererAndLoss.vis (two-phase: the
+    frustum mask, then render_one with the capacity's pair budget); no
+    overflow, one K4, K3 and K1 per frame; frame 0 against its all-plain
+    rerun and its kernel calls against the plain versions; then
+    check_viewer --oneshot on the card. Returns (json, launches, held kernel
+    errors, K1 rows, failures)."""
+    import torch
+
+    from log_tpu_torch.apps import check_viewer
+    from log_tpu_torch.model.base_gaussian import BaseGaussian
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+    from log_tpu_torch.utils.synth_tree import build_checkpoint, roots_record
+
+    record = roots_record(build_checkpoint(N_ROOTS, seed=SEED), N_ROOTS)
+    model = BaseGaussian.create_from_record(record, sh_degree=1,
+                                            device=device)
+    model.eval()
+    model.set_state(enable_sh=True)
+    renderer = NaiveRendererAndLoss(split="demo", device=device)
+    batches = orbit_batches(FRAMES)
+    calls = {}
+    with recording(calls):
+        renderer.vis(batches[0], model)
+    failures, frames, renders = [], [], []
+    rec = {}
+    torch.cuda.reset_peak_memory_stats()
+    with request_telemetry(renderer, model, rec):
+        kernels.reset_launches()
+        for i, batch in enumerate(batches):
+            rec.clear()
+            out, s = timed(lambda: renderer.vis(batch, model))
+            frames.append({"frame": i, "ms": s * 1e3, **rec})
+            renders.append(out["render"][0])
+        launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    frame_ms = [f["ms"] for f in frames[WARMUP:]]
+    over = [f["frame"] for f in frames if f["pair_total"] > f["max_pairs"]]
+    log(f"vanilla: {model.num_points} Gaussians (capacity {model.capacity}), "
+        f"{FRAMES} frames ({WARMUP} warm-up), per-frame ms "
+        + " ".join(f"{f['ms']:.2f}" for f in frames)
+        + f"; mean {np.mean(frame_ms):.3f} ms, render_one "
+        f"{np.mean([f['render_ms'] for f in frames[WARMUP:]]):.3f} ms; pair "
+        f"demand {min(f['pair_total'] for f in frames)}-"
+        f"{max(f['pair_total'] for f in frames)} (budget "
+        f"{frames[0]['max_pairs']}), overflow in frames {over}; peak memory "
+        f"{peak / 2**30:.3f} GiB; launches {launches}")
+    if over:
+        failures.append(f"vanilla: pair overflow in frames {over}")
+    for name in SERVING_KERNELS:
+        if launches[name] != FRAMES:
+            failures.append(f"vanilla: {name} launched {launches[name]} "
+                            f"times in {FRAMES} frames")
+    for name in ("rasterize_bwd", "rasterize_fwd_packed", "expand_packed"):
+        if launches[name]:
+            failures.append(f"vanilla: {name} launched")
+    failures += check_frames(renders, "vanilla")
+    with plain_versions():
+        plain = renderer.vis(batches[0], model)["render"][0]
+    diff = float(np.abs(plain - renders[0]).max())
+    log(f"vanilla: frame 0 plain vs kernels max abs {diff:.4g}")
+    if diff > FRAME_MAX_ABS:
+        failures.append(f"vanilla: plain frame differs by {diff}")
+    k_rows = {}
+    errs, f = hold_calls(calls, "vanilla frame 0", log, k_rows)
+    failures += f
+    del model, renderer
+    torch.cuda.empty_cache()
+    # check_viewer --oneshot on the card (2,000 Gaussians at 360x480)
+    kernels.reset_launches()
+    jpeg, s = timed(lambda: check_viewer.main(
+        ["--oneshot", "--out", "build/check_viewer.jpg"]))
+    cv_launches = dict(kernels.LAUNCHES)
+    img = decode_jpeg(jpeg)
+    log(f"check_viewer --oneshot: {len(jpeg)} bytes, {s * 1e3:.1f} ms, "
+        f"launches {cv_launches}")
+    if img.shape != (check_viewer.H, check_viewer.W, 3) or img.std() < 10:
+        failures.append(f"check_viewer: frame {img.shape} std {img.std()}")
+    for name in SERVING_KERNELS:
+        if cv_launches[name] != 1:
+            failures.append(f"check_viewer: {name} launched "
+                            f"{cv_launches[name]} times")
+    out = {"frame_ms_mean": float(np.mean(frame_ms)),
+           "frame_ms_min": float(np.min(frame_ms)),
+           "frame_ms_max": float(np.max(frame_ms)), "frames": frames,
+           "points": int(record["xyz"].shape[0]), "peak_bytes": peak,
+           "plain_frame_max_abs": diff, "launches": launches,
+           "check_viewer": {"ms": s * 1e3, "bytes": len(jpeg),
+                            "launches": cv_launches}}
+    return out, {"vanilla": launches, "check_viewer": cv_launches}, errs, \
+        k_rows, failures
+
+
+def viewer_cli_phase(log):
+    """The viewer's own entry: make_state of Config.load_args on the cli
+    phase's config and final checkpoint (--device cuda), the warm-up frame
+    as viewer.main renders it, then VIEWER_CLI_REQUESTS requests through
+    make_handler. Returns (json, launches, failures)."""
+    import os
+
+    from log_tpu_torch.apps.train import resolve_device
+    from log_tpu_torch.apps.viewer import make_state
+    from log_tpu_torch.utils.command import update_global_variable
+    from log_tpu_torch.utils.config import Config
+
+    ckpt = os.path.join(CLI_EXP, "model_tree_full.pth")
+    args, cfg = Config.load_args(["--cfg", CLI_CFG, "ckptname", ckpt]
+                                 + CLI_OPTS)
+    cfg = update_global_variable(cfg, cfg)
+    state, s = timed(lambda: make_state(cfg, resolve_device(args.device)))
+    state.render_jpeg(0.0, 0.5, 4.0, np.zeros(3))
+    poses = [(2 * math.pi * i / VIEWER_CLI_REQUESTS, 0.5, 4.0, (0.0, 0.0, 0.0))
+             for i in range(VIEWER_CLI_REQUESTS)]
+    with serving(state) as get:
+        reqs, launches, frames, failures = viewer_requests(
+            get, state, poses, log, "viewer_cli")
+    log(f"viewer_cli: make_state {s:.2f} s, {state.model.num_points} points "
+        f"from {ckpt}, screen {state.W}x{state.H}, focal {state.focal}")
+    for i, img in enumerate(frames):
+        if img.shape != (state.H, state.W, 3) or img.std() < 5:
+            failures.append(f"viewer_cli: frame {i} {img.shape} std "
+                            f"{img.std()}")
+    if len(reqs) != VIEWER_CLI_REQUESTS:
+        failures.append(f"viewer_cli: {len(reqs)} answers")
+    return ({"make_state_s": s, "points": state.model.num_points,
+             "screen": [state.W, state.H], "requests": reqs,
+             "launches": launches, **(latency_json(reqs) if reqs else {})},
+            launches, failures)
+
+
+def tools_phase(log):
+    """The port's test_dataset and test_pointcloud on the cli scene (5
+    frames each, test_pointcloud's on the card) and read_colmap on a small
+    COLMAP model written by the port's writers, each as python -m in a
+    subprocess, checked by its outputs. Returns (json, failures)."""
+    import os
+    import shutil
+
+    from log_tpu_torch.dataset.camera_utils import read_cameras
+    from log_tpu_torch.utils import colmap_utils as cu
+    from log_tpu_torch.utils import image_io
+
+    shutil.rmtree(TOOLS_OUT, ignore_errors=True)
+    failures, out = [], {}
+
+    def run(name, module, argv):
+        proc = subprocess.run([sys.executable, "-m", module, *argv],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            failures.append(f"tools: {name} exited {proc.returncode}: "
+                            f"{proc.stderr[-2000:]}")
+        return proc
+
+    for name, outdir, pattern in (("test_dataset", "dataset", "{:06d}"),
+                                  ("test_pointcloud", "pointcloud",
+                                   "pointcloud_{:06d}")):
+        d = os.path.join(TOOLS_OUT, outdir)
+        _, s = timed(lambda: run(name, f"log_tpu_torch.apps.{name}",
+                                 ["--cfg", CLI_CFG, *CLI_OPTS, "outdir", d]))
+        files = sorted(os.listdir(d)) if os.path.isdir(d) else []
+        out[name] = {"s": s, "files": files}
+        imgs = [image_io.imread(os.path.join(d, f)) for f in files]
+        log(f"tools: {name} {s:.2f} s, wrote {files}")
+        if len(files) != 5 or any(im is None or im.std() < 5 for im in imgs):
+            failures.append(f"tools: {name} wrote {files}")
+        elif name == "test_pointcloud":
+            # the render beside the image: the cloud lands where the
+            # scene's pixels are
+            render, gt = np.split(imgs[0].astype(np.float64), 2, axis=1)
+            out[name]["render_gt_mean_abs"] = float(np.abs(render - gt).mean())
+            log(f"tools: test_pointcloud frame 0 |render - image| mean "
+                f"{out[name]['render_gt_mean_abs']:.2f} (8-bit)")
+    rng = np.random.default_rng(SEED)
+    colmap = os.path.join(TOOLS_OUT, "colmap")
+    cameras = {1: cu.Camera(1, "PINHOLE", 320, 256,
+                            np.array([300.0, 300.0, 160.0, 128.0])),
+               2: cu.Camera(2, "OPENCV", 320, 256,
+                            np.array([310.0, 305.0, 161.0, 127.0, 0.01,
+                                      -0.02, 0.001, 0.0]))}
+    images, n_pts = {}, 50
+    for i in range(1, 7):
+        a = 2 * math.pi * i / 6
+        eye = np.array([4 * math.cos(a), 4 * math.sin(a), 1.0])
+        fwd = -eye / np.linalg.norm(eye)
+        right = np.cross(fwd, [0, 0, 1.0])
+        right /= np.linalg.norm(right)
+        R = np.stack([right, np.cross(fwd, right), fwd])
+        images[i] = cu.Image(i, cu.rotmat2qvec(R), -R @ eye, 1 + i % 2,
+                             f"{i:04d}.jpg", rng.uniform(0, 320, (3, 2)),
+                             rng.integers(1, n_pts + 1, 3))
+    points = {p: cu.Point3D(p, rng.normal(size=3), rng.integers(0, 256, 3),
+                            0.5, rng.integers(1, 7, 1 + p % 4),
+                            rng.integers(0, 3, 1 + p % 4))
+              for p in range(1, n_pts + 1)}
+    cu.write_model(cameras, images, points, colmap, ".bin")
+    _, s = timed(lambda: run("read_colmap",
+                             "log_tpu_torch.apps.calibration.read_colmap",
+                             [colmap, "--min_views", "2"]))
+    want = sum(1 for p in points.values() if p.image_ids.shape[0] >= 2)
+    try:
+        sparse = np.load(os.path.join(colmap, "sparse.npz"))
+        cams = read_cameras(colmap)
+        got = (int(sparse["xyz"].shape[0]), len(cams))
+    except OSError as exc:
+        got = str(exc)
+    log(f"tools: read_colmap {s:.2f} s: (points, cameras) {got}, want "
+        f"({want}, {len(images)})")
+    if got != (want, len(images)):
+        failures.append(f"tools: read_colmap gave {got}")
+    out["read_colmap"] = {"s": s, "points_cameras": got}
+    return out, failures
+
+
 def main() -> int:
     import torch
 
@@ -3458,6 +3965,19 @@ def main() -> int:
     del model, renders, plain, kern, generic0
     torch.cuda.empty_cache()
 
+    # ----------------------------------------- the viewer, the vanilla model
+    held = {}
+    viewer_json, v_launches, held["viewer"], v_rows, vfail = viewer_phase(
+        device, log)
+    failures += vfail
+    torch.cuda.empty_cache()
+    vanilla_json, van_launches, held["vanilla"], van_rows, vanfail = \
+        vanilla_phase(device, log)
+    failures += vanfail
+    for phase_rows in (v_rows, van_rows):
+        rows["rasterize_fwd"]["modes"] += phase_rows.get("rasterize_fwd", [])
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- training
     t0 = time.perf_counter()
     model = build_train_model(device)
@@ -3522,7 +4042,6 @@ def main() -> int:
         profile_steps(model, trainer, batches, float(np.median(step_ms)), log)
 
     # ------------------------------------------------------------ growth
-    held = {}
     growth_json, g_launches, held["growth"], gfail = growth_phase(
         model, trainer, batches, step_ms, device, log)
     failures += gfail
@@ -3567,6 +4086,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_json, cli_launches, cli_calls, held["cli"], cfail = cli_phase(log)
     failures += cfail
+    vc_json, vc_launches, vcfail = viewer_cli_phase(log)
+    failures += vcfail
+    tools_json, tfail = tools_phase(log)
+    failures += tfail
     cd_json, cd_launches, cd_calls, held["cli_depth"], cdfail = \
         cli_depth_phase(cli_json["final_val"], log)
     failures += cdfail
@@ -3584,13 +4107,15 @@ def main() -> int:
         "spill": spill_json, "two_stage": two_json,
         "grown_frame": frame_json, "cli": cli_json, "cli_depth": cd_json,
         "sharded_step": ss_json, "sharded_render": sr_json,
-        "cli_parallel": cp_json,
+        "cli_parallel": cp_json, "viewer": viewer_json,
+        "vanilla": vanilla_json, "viewer_cli": vc_json, "tools": tools_json,
     }))
     kernels_json = []
     runs = dict(serve_runs, train=t_launches, growth=g_launches,
                 depth_step=d_launches, **s_launches, two_stage=ts_launches,
                 grown_frame=gf_launches, **cli_launches, **cd_launches,
-                sharded_step=ss_launches, **sr_launches, **cp_launches)
+                sharded_step=ss_launches, **sr_launches, **cp_launches,
+                viewer=v_launches, **van_launches, viewer_cli=vc_launches)
     # main-path calls per phase: frames, training steps, or renders
     n_calls = dict({phase: FRAMES for phase in serve_runs},
                    train=TRAIN_STEPS, growth=GROWTH_STEPS,
@@ -3598,7 +4123,9 @@ def main() -> int:
                    spill=SPILL_STEPS, spill_after_densify=SPILL_AFTER_DENSIFY,
                    two_stage=len(two_json["steps"]), grown_frame=1,
                    **cli_calls, **cd_calls, sharded_step=SHARDED_STEPS,
-                   **{k: FRAMES for k in sr_launches}, **cp_steps)
+                   **{k: FRAMES for k in sr_launches}, **cp_steps,
+                   viewer=VIEWER_REQUESTS, vanilla=FRAMES, check_viewer=1,
+                   viewer_cli=VIEWER_CLI_REQUESTS)
     # the growth phases' own calls held against the plain versions
     for phase, errs in held.items():
         for name, err in errs.items():

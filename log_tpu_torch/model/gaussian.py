@@ -65,6 +65,15 @@ class GaussianPoint:
         write-back)."""
         self._data[key] = value
 
+    def items(self):
+        for key in self.keys:
+            yield key, self._data[key]
+
+    @property
+    def alive_mask(self) -> torch.Tensor:
+        """(capacity,) bool: the rows below num_points."""
+        return torch.arange(self.capacity, device=self.device) < self.num_points
+
     def params(self) -> dict:
         """Capacity-padded param dict."""
         return {k: self._data[k] for k in self.keys}

@@ -2,10 +2,11 @@
 
 `NaiveRendererAndLoss.vis` is the no-grad inference path of the demo, val
 and overlook renders: one `LoG.render_fused` frame per camera for a model in
-eval mode, and for a model in training mode the two-phase render
-(`LoG.prepare_from_camera`, then `render_one`). `render_one` renders the
-prepared LoD cut with `rasterize_tiled(with_stats=False)` (or the oracle
-where the backend is "reference"); validation calls it. `prepare_camera`
+eval mode, and for a model in training mode or one without a fused frame
+(`BaseGaussian`) the two-phase render (`prepare_from_camera`, then
+`render_one`). `render_one` renders the prepared LoD cut with
+`rasterize_tiled(with_stats=False)` (or the oracle where the backend is
+"reference"); validation calls it. `prepare_camera`
 gives the training step its camera and its background (random under
 `use_randback`, drawn from the caller's numpy Generator); the loss runs
 inside the training step (model/train_step.py). `MaskForeground` crops
@@ -123,6 +124,29 @@ class BaseRender:
         return np.ascontiguousarray(vis)
 
     @staticmethod
+    def acc_to_bgr(tensor):
+        """An (H, W) map in [0, 1] in OpenCV's JET colors (BGR uint8); needs
+        cv2, as in the JAX package."""
+        try:
+            import cv2
+        except ImportError as exc:
+            raise RuntimeError("acc_to_bgr needs cv2 (cv2.applyColorMap)") \
+                from exc
+        if isinstance(tensor, torch.Tensor):
+            tensor = tensor.detach().cpu().numpy()
+        vis = (np.clip(np.asarray(tensor), 0.0, 1.0) * 255).astype(np.uint8)
+        return np.ascontiguousarray(cv2.applyColorMap(vis, cv2.COLORMAP_JET))
+
+    @staticmethod
+    def depth_to_bgr(tensor):
+        """acc_to_bgr of the map normalized to its own range."""
+        if isinstance(tensor, torch.Tensor):
+            tensor = tensor.detach().cpu().numpy()
+        t = np.asarray(tensor)
+        depth = (t - t.min()) / max(t.max() - t.min(), 1e-9)
+        return BaseRender.acc_to_bgr(depth)
+
+    @staticmethod
     def marigold_depth_vis(tensor, cmap="Spectral"):
         """8-bit Spectral colors of a map normalized to [0, 1], in RGB
         order (the JAX package writes these bytes with cv2.imwrite, which
@@ -187,8 +211,14 @@ class NaiveRendererAndLoss(BaseRender):
     def render_one(self, model, camera, background, extra_colors=None):
         """Render of the LoD cut that `model.prepare_from_camera(camera)`
         left in `model.visibility_flag`, with the model's colors or, where
-        given, extra_colors (capacity, C). Returns device tensors ('render'
-        (C, H, W), 'alpha' (H, W), 'depth_cam' (capacity,), ...)."""
+        given, extra_colors (capacity, C). The pair budget comes from the
+        prepared cut's kept counts, or from the capacity where the prepare
+        pass left none (BaseGaussian's frustum flag); a frame whose pair
+        demand exceeds it is rendered again at its demand (up to
+        pick_max_pairs' cap of 2^23), so that no pair is dropped below the
+        cap. Returns device tensors ('render' (C, H, W), 'alpha' (H, W),
+        'depth_cam' (capacity,), ...; on the tiled path also 'pair_total'
+        and the budget, 'max_pairs')."""
         from ..ops import pick_backend, pick_max_pairs, rasterize_ref
 
         cam = camera_device(camera, model.device)
@@ -212,20 +242,32 @@ class NaiveRendererAndLoss(BaseRender):
             image_height=cam["image_height"], image_width=cam["image_width"],
             active_mask=vf["keep_mask"], mode=self.mode, use_filter=False,
         )
-        # the pair budget from the prepared cut's kept count
-        k_budget = max(int(vf["counts"][0]) + int(vf["counts"][1]), 1)
-        if pick_backend(model.capacity, device=model.device) == "tiled":
+        capacity = params["xyz"].shape[0]
+        counts = vf.get("counts")
+        k_budget = (capacity if counts is None
+                    else max(int(counts[0]) + int(counts[1]), 1))
+        if pick_backend(capacity, device=model.device) == "tiled":
             from ..ops.rasterize_tiled import rasterize_tiled
 
-            return rasterize_tiled(**kwargs,
-                                   max_pairs=pick_max_pairs(k_budget),
-                                   with_stats=False)
+            max_pairs = pick_max_pairs(k_budget)
+            out = rasterize_tiled(**kwargs, max_pairs=max_pairs,
+                                  with_stats=False)
+            demand = int(out["pair_total"])
+            if demand > max_pairs:
+                # eight tiles a point fell short (large splats on the
+                # screen): render again at the frame's measured demand
+                max_pairs = pick_max_pairs(demand, per_point=1)
+                out = rasterize_tiled(**kwargs, max_pairs=max_pairs,
+                                      with_stats=False)
+            out["max_pairs"] = max_pairs
+            return out
         return rasterize_ref.rasterize(**kwargs)
 
     @torch.no_grad()
     def vis(self, batch, model, background=None):
-        """Batch inference: per camera, one fused frame (eval mode) or the
-        two-phase render (training mode, or with render_depth). Returns host
+        """Batch inference: per camera, one fused frame (eval mode, where
+        the model has render_fused) or the two-phase render (training mode,
+        with render_depth, or a model without a fused frame). Returns host
         arrays 'render' (B, 3, H, W), 'alpha' and 'mask' (B, H, W),
         quantized to 8 bits on the device like the JAX package, and with
         render_depth the float maps 'depth' (composited camera depth),
@@ -233,7 +275,8 @@ class NaiveRendererAndLoss(BaseRender):
         rendered over a zero background."""
         preds = defaultdict(list)
         B = np.asarray(batch["camera"]["camera_center"]).shape[0]
-        fused = not (getattr(model, "training", False) or self.render_depth)
+        fused = (not (getattr(model, "training", False) or self.render_depth)
+                 and hasattr(model, "render_fused"))
         for bn in range(B):
             camera, bg = self.prepare_camera(batch, bn, background)
             if fused:

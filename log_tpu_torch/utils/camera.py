@@ -11,6 +11,10 @@ def focal2fov(focal, pixels):
     return 2 * math.atan(pixels / (2 * focal))
 
 
+def fov2focal(fov, pixels):
+    return pixels / (2 * math.tan(fov * 0.5))
+
+
 def projection_matrix_from_K(K, H, W, znear, zfar):
     """4x4 projection from intrinsics, keeping cx/cy and skew (column-vector
     form; callers transpose for the row-vector convention)."""

@@ -4,7 +4,8 @@ PNG goes through the port's own codec (zlib and struct): 8-bit gray, RGB and
 RGBA and 16-bit gray, non-interlaced, every filter type on read; always this
 codec, whatever is installed. JPEG is decoded and encoded by `cv2`, else
 `PIL`, where one imports; with neither, reading a JPEG raises and writing
-one writes a PNG of the same stem instead (said once per process).
+one writes a PNG of the same stem instead (said once per process), while
+`encode_jpeg` (the viewer's bytes in memory) raises.
 `resize_area` is OpenCV's INTER_AREA for integer factors, in numpy.
 `make_video` joins numbered frames into an mp4 (ffmpeg, else cv2, else
 skipped). Nothing here touches a device.
@@ -12,6 +13,7 @@ skipped). Nothing here touches a device.
 from __future__ import annotations
 
 import glob
+import io
 import os
 import shutil
 import struct
@@ -157,6 +159,29 @@ def _jpeg_backend():
         return "PIL"
     except ImportError:
         return None
+
+
+def encode_jpeg(bgr: np.ndarray, quality: int = 85) -> bytes:
+    """The JPEG bytes of a BGR uint8 image, through cv2, else PIL; raises
+    where neither imports (a caller that serves images must not answer
+    without one)."""
+    backend = _jpeg_backend()
+    if backend == "cv2":
+        import cv2
+
+        ok, buf = cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY,
+                                             int(quality)])
+        if not ok:
+            raise OSError("cv2 could not encode the JPEG")
+        return buf.tobytes()
+    if backend == "PIL":
+        from PIL import Image
+
+        out = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(bgr[:, :, ::-1])).save(
+            out, format="JPEG", quality=int(quality))
+        return out.getvalue()
+    raise RuntimeError("no JPEG encoder: neither cv2 nor PIL imports")
 
 
 def _is_png(name: str) -> bool:

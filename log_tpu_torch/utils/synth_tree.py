@@ -14,7 +14,9 @@ Both packages' `load_state_dict` take it as is, which is how one set of
 weights is carried across. The training step clamps each point's scale into
 [counter.radius3d_min, counter.radius3d_max] (the init pass sets them in a
 real run); here they are 0.5x the point's smallest and 2x its largest axis,
-so training starts inside them.
+so training starts inside them. `roots_record` gives the roots alone as
+activated attributes, the vanilla model's record
+(`BaseGaussian.create_from_record`).
 """
 from __future__ import annotations
 
@@ -123,3 +125,19 @@ def build_checkpoint(n_roots: int, seed: int = 0, sh_degree: int = 1) -> dict:
         "counter.radius3d_min": (0.5 * scal.min(axis=1)).astype(f32),
         "counter.radius3d_max": (2.0 * scal.max(axis=1)).astype(f32),
     }
+
+
+def roots_record(ckpt: dict, n_roots: int) -> dict:
+    """The first n_roots points (the roots) of a checkpoint as activated
+    attributes: xyz, colors (SH DC as RGB), scaling (exp), opacity
+    (sigmoid, (n,)), rotation (normalized) and shs, float32."""
+    def rows(key):
+        return np.asarray(ckpt[f"gaussian.{key}"][:n_roots], np.float64)
+
+    q = rows("rotation")
+    rec = {"xyz": rows("xyz"), "colors": rows("colors") * SH_C0 + 0.5,
+           "scaling": np.exp(rows("scaling")),
+           "opacity": 1.0 / (1.0 + np.exp(-rows("opacity")[:, 0])),
+           "rotation": q / np.linalg.norm(q, axis=1, keepdims=True),
+           "shs": rows("shs")}
+    return {k: v.astype(np.float32) for k, v in rec.items()}

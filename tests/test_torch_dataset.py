@@ -392,3 +392,21 @@ def test_metrics_match_jax():
     assert metric.psnr(a, b) == metric_jax.psnr(a, b)
     np.testing.assert_array_equal(metric.mse(a, b), metric_jax.mse(a, b))
     assert metric.psnr(torch.from_numpy(a), b) == metric_jax.psnr(a, b)
+
+
+def test_ssim_np_and_fov2focal_match_jax():
+    from log_tpu.utils import camera as camera_jax
+    from log_tpu.utils import metric as metric_jax
+    from log_tpu_torch.utils import camera, metric
+
+    rng = np.random.default_rng(5)
+    a = rng.random((3, 24, 32)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    want = metric_jax.ssim_np(a, b)
+    assert abs(metric.ssim_np(a, b) - want) < 1e-6
+    assert abs(metric.ssim_np(torch.from_numpy(a), b) - want) < 1e-6
+    assert metric.ssim_np(a, a) == pytest.approx(1.0, abs=1e-6)
+    for fov, px in ((0.3, 64), (1.2, 1920), (2.0, 1088)):
+        assert camera.fov2focal(fov, px) == camera_jax.fov2focal(fov, px)
+        assert camera.focal2fov(camera.fov2focal(fov, px), px) == \
+            pytest.approx(fov, rel=1e-12)

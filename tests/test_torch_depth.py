@@ -389,3 +389,21 @@ def test_marigold_depth_vis_matches_matplotlib(dtype):
     assert got.dtype == want.dtype == np.uint8
     assert np.array_equal(got, want)
     assert len(np.unique(got.reshape(-1, 3), axis=0)) > 100
+
+
+def test_acc_and_depth_to_bgr_match_jax():
+    rng = np.random.default_rng(13)
+    acc = rng.uniform(-0.2, 1.2, (24, 32)).astype(np.float32)
+    got = NaiveRendererAndLoss.acc_to_bgr(acc)
+    want = RendererJax.acc_to_bgr(acc)
+    assert got.shape == (24, 32, 3) and got.dtype == np.uint8
+    assert np.array_equal(got, want)
+    assert np.array_equal(
+        NaiveRendererAndLoss.acc_to_bgr(torch.from_numpy(acc)), want)
+    depth = rng.uniform(2.0, 9.0, (24, 32)).astype(np.float32)
+    assert np.array_equal(NaiveRendererAndLoss.depth_to_bgr(depth),
+                          RendererJax.depth_to_bgr(depth))
+    # a constant map normalizes to 0 in both
+    flat = np.full((4, 5), 3.0, np.float32)
+    assert np.array_equal(NaiveRendererAndLoss.depth_to_bgr(flat),
+                          RendererJax.depth_to_bgr(flat))

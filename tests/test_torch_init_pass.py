@@ -103,6 +103,21 @@ def test_gaussian_from_ply_matches_jax(ply, ground):
                                   port.get("scaling")[:300, 2])
 
 
+def test_gaussian_items_and_alive_mask_match_jax(ply):
+    path, _, _ = ply
+    init_ply = {"filename": path, "init_opacity": 0.1}
+    port = GaussianPoint(init_ply=dict(init_ply), sh_degree=1, device="cpu")
+    ref = GaussianPointJax(init_ply=dict(init_ply), sh_degree=1)
+    got, want = list(port.items()), list(ref.items())
+    assert [k for k, _ in got] == [k for k, _ in want] == list(KEYS)
+    for (_, a), (_, b) in zip(got, want):
+        assert a.shape == b.shape
+    mask = port.alive_mask
+    assert mask.dtype == torch.bool and mask.shape == (port.capacity,)
+    assert port.capacity > port.num_points == int(mask.sum())
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(ref.alive_mask))
+
+
 # ------------------------------------------------------------------ init pass
 MODEL_ARGS = {
     "use_view_correction": True,

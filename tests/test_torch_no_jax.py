@@ -31,6 +31,15 @@ def test_package_imports_without_jax():
     for name in ("comm", "mesh", "launch", "sharded_step", "executor",
                  "sharded_render"):
         assert f"log_tpu_torch.parallel.{name}" in names
+    for name in ("model.base_gaussian", "model.model_utils",
+                 "utils.colmap_utils", "apps.viewer", "apps.gui",
+                 "apps.check_viewer", "apps.test_pointcloud",
+                 "apps.test_dataset", "apps.calibration.read_colmap",
+                 "apps.calibration.align_with_cam",
+                 "apps.calibration.align_with_gps",
+                 "apps.calibration.read_gps_info",
+                 "apps.calibration.run_midas"):
+        assert f"log_tpu_torch.{name}" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

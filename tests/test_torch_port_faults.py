@@ -1,7 +1,12 @@
-"""Three behaviours where the port follows the JAX package: the backend
-override is read first (also on a CUDA device), the oracle recomputes each
-chunk in its backward instead of keeping its (chunk, H*W) intermediates,
-and the trainer's GT device cache starts off."""
+"""Behaviours where the port follows the JAX package: the backend override
+is read first (also on a CUDA device), the oracle recomputes each chunk in
+its backward instead of keeping its (chunk, H*W) intermediates, the
+trainer's GT device cache starts off, its draws follow the JAX package's,
+the oracle step's counters hold values (F1-F5); `vis` renders a model
+without `render_fused` in two phases (F6), `render_one` sizes the pair
+budget from the capacity where the prepare pass left no counts (F7), and
+renders a frame whose pair demand exceeds that budget again at its demand
+instead of dropping pairs (F8; the JAX package drops them)."""
 import math
 import os
 
@@ -219,3 +224,110 @@ def test_oracle_step_counters_hold_values(monkeypatch):
     assert not any(v.requires_grad for v in model.counter.data.values())
     assert float(model.counter.data["weights_max"].max()) > 0
     assert model.state_dict()["counter.weights_max"].shape == (model.num_points,)
+
+
+# ------------------------------------- F6, F7: a model without a fused frame
+class _FrustumModel:
+    """The renderer's view of a model with no render_fused whose prepare
+    pass keeps every alive row and leaves no counts (as BaseGaussian's
+    frustum flag does)."""
+
+    training = False
+
+    def __init__(self, n=600, scale=0.05, counts=False):
+        from log_tpu_torch.model.gaussian import GaussianPoint
+
+        rng = np.random.default_rng(5)
+        g = GaussianPoint(sh_degree=0, device="cpu")
+        g.register_by_pointcloud(
+            rng.uniform(-1, 1, (n, 3)).astype(np.float32),
+            rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32),
+            np.full(n, scale, np.float32), init_opacity=0.6)
+        self.gaussian, self.device, self.capacity = g, g.device, g.capacity
+        self.visibility_flag, self.counts = None, counts
+
+    def prepare_from_camera(self, camera):
+        alive = torch.arange(self.capacity) < self.gaussian.num_points
+        self.visibility_flag = {"keep_mask": alive}
+        if self.counts:  # as LoG's prepare pass: (leaf, node) kept
+            self.visibility_flag["counts"] = (self.gaussian.num_points, 0)
+
+
+def _frustum_camera(h=48, w=64, focal=60.0):
+    pos = np.array([0.0, -4.0, 1.0])
+    fwd = -pos / np.linalg.norm(pos)
+    right = np.cross(fwd, [0, 0, 1.0])
+    right /= np.linalg.norm(right)
+    R = np.stack([right, np.cross(fwd, right), fwd])
+    return prepare_camera({"K": np.array([[focal, 0, w / 2],
+                                          [0, focal, h / 2], [0, 0, 1]]),
+                           "R": R, "T": (-R @ pos).reshape(3, 1), "H": h,
+                           "W": w, "center": pos.reshape(3, 1)},
+                          1, 0.01, 100.0)
+
+
+def test_vis_renders_a_model_without_render_fused():
+    """F6: the JAX package's vis takes the fused frame only where the model
+    has one; in eval mode the port called model.render_fused on every
+    model."""
+    from log_tpu_torch.render.renderer import CAMERA_KEYS, NaiveRendererAndLoss
+
+    model = _FrustumModel()
+    cam = _frustum_camera()
+    renderer = NaiveRendererAndLoss(split="demo", device="cpu")
+    batch = {"camera": {k: np.asarray(cam[k])[None] for k in CAMERA_KEYS}}
+    out = renderer.vis(batch, model)
+    assert out["render"].shape == (1, 3, 48, 64)
+    one = renderer.render_one(model, cam, renderer.background)["render"]
+    one8 = (torch.clamp(one, 0, 1) * 255).to(torch.uint8).numpy() / 255.0
+    assert np.array_equal(out["render"][0], one8.astype(np.float32))
+    assert out["alpha"].max() > 0.5
+
+
+def test_render_one_budget_without_counts(monkeypatch):
+    """F7: without counts in the visibility flag the JAX package sizes the
+    pair budget from the capacity; the port read flag["counts"] and
+    raised. The tiled frame (plain kernels on the CPU) then agrees with
+    the oracle at tests/test_rasterize_tiled.py's 1e-2."""
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+
+    model = _FrustumModel()
+    cam = _frustum_camera()
+    renderer = NaiveRendererAndLoss(split="demo", device="cpu")
+    model.prepare_from_camera(cam)
+    assert "counts" not in model.visibility_flag
+    monkeypatch.setenv("LOG_TPU_BACKEND", "tiled")
+    tiled = renderer.render_one(model, cam, renderer.background)
+    assert tiled["max_pairs"] == ops.pick_max_pairs(model.capacity)
+    assert int(tiled["pair_total"]) <= tiled["max_pairs"]
+    monkeypatch.setenv("LOG_TPU_BACKEND", "reference")
+    ref = renderer.render_one(model, cam, renderer.background)
+    assert "max_pairs" not in ref
+    for key in ("render", "alpha"):
+        np.testing.assert_allclose(tiled[key].numpy(), ref[key].numpy(),
+                                   atol=1e-2)
+
+
+def test_render_one_renders_the_demand_past_the_budget(monkeypatch):
+    """F8: the budget of eight tiles a kept point is short where splats
+    cover more (a close camera, large splats): the JAX package then drops
+    the pairs past it and renders a wrong frame. The port renders the frame
+    again at its measured demand: the same frame as with counts whose
+    budget holds every pair."""
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+
+    monkeypatch.setenv("LOG_TPU_BACKEND", "tiled")
+    model = _FrustumModel(n=3000, scale=0.5, counts=True)
+    cam = _frustum_camera(h=128, w=256, focal=300.0)
+    renderer = NaiveRendererAndLoss(split="demo", device="cpu")
+    model.prepare_from_camera(cam)
+    tiled = renderer.render_one(model, cam, renderer.background)
+    model.visibility_flag["counts"] = (40_000, 0)  # 8 x 40,000 pairs
+    roomy = renderer.render_one(model, cam, renderer.background)
+    for key in ("render", "alpha"):
+        np.testing.assert_allclose(tiled[key].numpy(), roomy[key].numpy(),
+                                   rtol=0, atol=1e-6)
+    assert int(roomy["pair_total"]) <= roomy["max_pairs"]
+    demand = int(tiled["pair_total"])
+    assert demand > ops.pick_max_pairs(model.gaussian.num_points)
+    assert tiled["max_pairs"] == ops.pick_max_pairs(demand, per_point=1)
