@@ -189,7 +189,27 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    output/chip_tools) and log_tpu_torch.apps.calibration.read_colmap on a
    small COLMAP model written by the port's writers, each as python -m in
    a subprocess and checked by its outputs (their launches, in other
-   processes, are not counted).
+   processes, are not counted);
+21. scale (after cli_parallel, the earlier models freed): the run functions
+   of log_tpu_torch/scripts at their own sizes, SCALE_FRAMES timed frames a
+   cell and SCALE_WARMUP + SCALE_STEPS steps: bench_trainstep (1920x1088,
+   100k points, the identity step), bench_spill (the same geometry on the
+   device path, with exp_avg_sq spilled and with both moments spilled by
+   maybe_spill: the states agree), bench_4k (3840x2160 block frames of the
+   3.24M-point tree at min_res 96 and 3, culled every 4 frames, and one
+   close 4K vanilla frame of its roots through render_one) and
+   bench_capacity (the 10.26M-point tree: memory, block frames at min_res
+   96 and 3, the fused flat_slice frame at 96, the tree-stage step,
+   maybe_spill not engaged); every frame cell's budget sized from its
+   demand and re-timed at a raised budget where a timed frame overflowed,
+   none over its budget; the first frame or step of the SCALE_HELD cells
+   recorded and held against the plain versions (K3p and K5 of the 4K and
+   10.26M block frames timed);
+22. cli_mask: config/synthetic's scene made on the card, masks/ by
+   thresholding its white background, config/synthetic_mask through
+   log_tpu_torch.apps.train (MaskForeground: every step must launch K4,
+   K3, K1 and K2 with the mask handed to it, the tree stage's loss must
+   fall), then final_val's masked validation.
 With --profile, 4 more frames of the generic, flat_slice and block phases
 and 4 more training steps run under torch.profiler, each after its timed
 run, and 4 steps of the cli run's tree stage (steps 600-603) are traced in
@@ -426,6 +446,27 @@ TELEMETRY_MS = ("prepare_ms", "render_ms", "bgr_ms", "encode_ms")
 # and read_colmap as subprocesses, their outputs under TOOLS_OUT
 VIEWER_CLI_REQUESTS = 4
 TOOLS_OUT = "output/chip_tools"
+# scale: log_tpu_torch/scripts' run functions at their own sizes with
+# fewer repeats; the kernel calls of the SCALE_HELD cells' first frame
+# (with its cull), of bench_spill's first spilled step and of the step
+# cells' first step at their timed budget are held against the plain
+# versions
+SCALE_FRAMES = 6
+SCALE_STEPS, SCALE_WARMUP = 6, 2
+SCALE_HELD = ("trainstep step", "spill_both step 0", "4k blocks minres96",
+              "4k blocks minres3", "4k vanilla frame",
+              "capacity blocks_minres96", "capacity fused_minres96",
+              "capacity step")
+SCALE_PACKED = ("4k blocks minres96", "capacity blocks_minres96")
+FRAME_KERNELS = ("pack_rows", "rasterize_fwd", "rasterize_fwd_packed")
+# cli_mask: config/synthetic_mask through the port's CLI on config/synthetic's
+# scene, its masks by thresholding the white background
+CLI_MASK_SCENE = "output/chip_mask_scene"
+CLI_MASK_EXP = "output/chip_cli_mask/log"
+CLI_MASK_CFG = "config/synthetic_mask/train.yml"
+CLI_MASK_SCENE_ARGS = [CLI_MASK_SCENE, "200", "16", "120", "160", ".png"]
+CLI_MASK_WHITE = 250  # a pixel with every channel at least this is background
+CLI_MASK_WINDOW = 20  # steps at each end of the tree stage (its base_iter)
 
 
 def make_cam(theta, height=18.0, radius=22.0, h=H, w=W, focal=1400.0):
@@ -501,31 +542,35 @@ def plain_versions():
         yield
 
 
-def _copied(x):
+def _copied(x, device=None):
     """x with every tensor in it (in lists, tuples and dicts) detached and
-    cloned."""
+    cloned (onto `device` where given)."""
     import torch
 
     if isinstance(x, torch.Tensor):
-        return x.detach().clone()
+        x = x.detach()
+        return x.clone() if device is None else x.to(device, copy=True)
     if isinstance(x, dict):
-        return {k: _copied(v) for k, v in x.items()}
+        return {k: _copied(v, device) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
-        return type(x)(_copied(v) for v in x)
+        return type(x)(_copied(v, device) for v in x)
     return x
 
 
 @contextlib.contextmanager
 def recording(calls, copy=False):
     """Record the arguments of every kernel wrapper call into calls[name]
-    (with copy, copies of them, which later calls cannot overwrite)."""
+    (with copy, copies of them, which later calls cannot overwrite; with
+    copy="cpu", copies in host memory, which leave the card's memory as the
+    path left it)."""
     from log_tpu_torch.ops import expand as ex
     from log_tpu_torch.ops import rasterize_tiled as rt
 
     def recorder(name, fn):
         def call(*args, **kwargs):
             calls.setdefault(name, []).append(
-                _copied((args, kwargs)) if copy else (args, kwargs))
+                _copied((args, kwargs), None if copy is True else copy)
+                if copy else (args, kwargs))
             return fn(*args, **kwargs)
         return call
 
@@ -925,9 +970,10 @@ def cross_path(label, img, cut, ref_img, ref_cut, log):
     return p, [] if ok else [f"{label}: cut {cut} vs {ref_cut}, PSNR {p}"]
 
 
-def compare_packed_kernels(calls, log):
+def compare_packed_kernels(calls, log, profile=True):
     """K3p and K5 against their plain versions on frame 0's own inputs of
-    the flat_slice frame, and every K4 pack of that frame bit-exact."""
+    the flat_slice frame, and every K4 pack of that frame bit-exact; with
+    profile, K5's device time and launches per call by the profiler too."""
     import torch
 
     from log_tpu_torch.ops import expand as ex
@@ -972,7 +1018,7 @@ def compare_packed_kernels(calls, log):
     ms = device_ms(lambda: rt.rasterize_forward_packed(*args, **kw), 10)
     dev_ms, dev_n = kernel_device_ms(
         lambda: rt.rasterize_forward_packed(*args, **kw), 10,
-        "rasterize_fwd_kernel", log)
+        "rasterize_fwd_kernel", log) if profile else (math.nan, math.nan)
     pms = device_ms(lambda: rt.rasterize_forward_packed_plain(*args, **kw), 2)
     pairs, dense, gated = composite_counts(args[0], args[1], args[2],
                                            full[5], args[4], packed=True)
@@ -987,10 +1033,11 @@ def compare_packed_kernels(calls, log):
         f"{pms:.4f} ms, bound {b_ms:.4f} ms ({by})")
     if err > K1_MAX_ABS or mean > K1_MEAN_ABS:
         failures.append("K5 rasterize_forward_packed disagrees with plain")
-    if dev_n != 1:
+    if profile and dev_n != 1:
         failures.append(f"K5: the profiler saw {dev_n} launches per call")
     rows["rasterize_fwd_packed"] = {
-        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": pms,
+        "max_abs_err": err, "ms": ms,
+        "device_ms": dev_ms if profile else None, "plain_ms": pms,
         "bound_ms": b_ms, "bound_by": by, "pairs": pairs,
         "dense_pair_pixels": dense, "gated_pair_pixels": gated}
     return rows, failures
@@ -3415,6 +3462,296 @@ def cli_parallel_phase(log):
     return out, launches, n_steps, failures
 
 
+# ------------------------------------------------------ scale, cli_mask
+def scale_phase(device, log):
+    """log_tpu_torch/scripts' bench_trainstep, bench_spill, bench_4k and
+    bench_capacity at their own sizes with SCALE_FRAMES timed frames per
+    cell and SCALE_WARMUP + SCALE_STEPS training steps (the step cells
+    add one step at their timed budget); each run between a reset and a
+    read of the launch counts. The SCALE_HELD frames and steps ran inside
+    a recording (host copies of every kernel call's inputs); after the runs
+    those calls are held against the plain versions, and K3p and K5 of the
+    SCALE_PACKED frames timed. Fails on a
+    timed frame whose pair demand passed its budget, a spill at 10.26M
+    points, a non-finite state or frame, spill modes that disagree, or a
+    path kernel that never launched. Returns (json, launches by cell, calls
+    by cell, held errors, kernel rows, failures)."""
+    import torch
+
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.scripts import (bench_4k, bench_capacity, bench_spill,
+                                       bench_trainstep)
+
+    held = {}
+
+    def hold(label):
+        if label not in SCALE_HELD:
+            return contextlib.nullcontext()
+        return recording(held.setdefault(label, {}), copy="cpu")
+
+    runs = (
+        ("trainstep", lambda: bench_trainstep.run(
+            steps=SCALE_STEPS, warmup=SCALE_WARMUP, device=device,
+            hold=hold)),
+        ("spill", lambda: bench_spill.run(
+            steps=SCALE_STEPS, warmup=SCALE_WARMUP, device=device,
+            hold=hold)),
+        ("4k", lambda: bench_4k.run(frames=SCALE_FRAMES, device=device,
+                                    hold=hold)),
+        ("capacity", lambda: bench_capacity.run(
+            frames=SCALE_FRAMES, steps=SCALE_STEPS, warmup=SCALE_WARMUP,
+            device=device, hold=hold)),
+    )
+    out, launches, n_calls, failures = {}, {}, {}, []
+    for name, run in runs:
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        res, s = timed(run)
+        total = dict(kernels.LAUNCHES)
+        res["wall_s"] = s
+        out[name] = res
+        cells = {k: v for k, v in res.items()
+                 if isinstance(v, dict) and "launches" in v}
+        if "launches" in res:
+            cells[""] = res
+        inside = dict.fromkeys(total, 0)
+        for cell, v in cells.items():
+            key = f"scale_{name}" + (f"_{cell}" if cell else "")
+            launches[key] = v["launches"]
+            n_calls[key] = v.get("frames", v.get("steps", 1))
+            for k in inside:
+                inside[k] += v["launches"][k]
+        launches[f"scale_{name}_other"] = {k: total[k] - inside[k]
+                                           for k in total}
+        log(f"scale {name}: {s:.2f} s; launches {total}, "
+            f"{launches[f'scale_{name}_other']} outside the timed cells")
+    failures += scale_checks(out, launches, n_calls, log)
+    seen = set(held)
+    errs, rows = {}, {}
+    for label in list(held):
+        calls = _copied(held.pop(label), device)
+        e, f = hold_calls(calls, f"scale {label}", log, rows)
+        failures += f
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        if label in SCALE_PACKED and "expand_packed" not in calls:
+            failures.append(f"scale {label}: K3p did not run")
+        elif label in SCALE_PACKED:
+            prow, f = compare_packed_kernels(calls, log, profile=False)
+            failures += f
+            for k, v in prow.items():
+                rows.setdefault(k, []).append(dict(v, call=f"scale {label}"))
+        del calls
+        torch.cuda.empty_cache()
+    missing = set(SCALE_HELD) - seen
+    if missing:
+        failures.append(f"scale: no calls recorded for {sorted(missing)}")
+    return out, launches, n_calls, errs, rows, failures
+
+
+def _scale_frame_cells(res):
+    return {k: v for k, v in res.items()
+            if isinstance(v, dict) and "demand_per_frame" in v}
+
+
+def scale_checks(out, launches, n_calls, log):
+    """The scale phase's pass conditions on the runs' results."""
+    failures = []
+    for name, res in out.items():
+        for cell, v in _scale_frame_cells(res).items():
+            log(f"scale {name} {cell}: {v['ms_per_frame']:.3f} ms a frame "
+                f"({v['fps']:.2f} fps), cut {v['cut']} (bucket {v['k_vis']}"
+                f", overflow {v['cut_overflow']}), pair demand "
+                f"{min(v['demand_per_frame'])}-{v['pairs_measured']} of "
+                f"{v['max_pairs']} (rebumped {v['budget_rebumped']}), "
+                f"eligible blocks {v.get('blocks_eligible')} of "
+                f"{v.get('blocks_total')}; last frame finite "
+                f"{v['image_finite']} std {v['image_std']:.4f}")
+            if v["pairs_measured"] > v["max_pairs"] or v["budget_overflow"]:
+                failures.append(f"scale {name} {cell}: a timed frame's pair "
+                                f"demand passed its budget")
+            if not v["image_finite"] or v["image_std"] < 0.01:
+                failures.append(f"scale {name} {cell}: frame not finite or "
+                                f"blank")
+            ran = launches[f"scale_{name}_{cell}"]
+            if min(ran[k] for k in FRAME_KERNELS) < 1:
+                failures.append(f"scale {name} {cell}: launches {ran}")
+    ts = out["trainstep"]
+    log(f"scale trainstep: {ts['n_points']} points at {ts['h']}x{ts['w']}, "
+        f"k_leaf {ts['k_leaf']} (identity {ts['identity']}): step median "
+        f"{ts['step_ms_median']:.3f} ms, peak {ts['peak_bytes'] / 2**30:.3f} "
+        f"GiB, pair demand {ts['pairs_measured']} of a budget of "
+        f"{ts['max_pairs']} (the JAX script's {ts['call_budget']}, "
+        f"warm-up demand {ts['warmup_demand']})")
+    sp = out["spill"]
+    for mode in ("device", "spill_sq", "spill_both"):
+        m = sp[mode]
+        log(f"scale spill {mode}: step median {m['step_ms_median']:.3f} ms, "
+            f"{m['h2d_bytes_per_step'] / 2**20:.2f} MiB up, "
+            f"{m['d2h_bytes_per_step'] / 2**20:.2f} MiB down a step, peak "
+            f"{m['peak_bytes'] / 2**30:.3f} GiB; pair demand "
+            f"{max(m['pairs_per_step'])} against the trainer's budget "
+            f"{max(m['budget_per_step'])}; vs device {m.get('vs_device')}")
+        if not m["finite"]:
+            failures.append(f"scale spill {mode}: state not finite")
+    if not sp["modes_agree"]:
+        failures.append("scale spill: the modes' states disagree")
+    van = out["4k"]["vanilla_close"]
+    log(f"scale 4k vanilla frame: {van['ms']:.3f} ms, pair demand "
+        f"{van['pairs_measured']} against the rail {van['rail']} (past it "
+        f"{van['past_rail']}), budget {van['max_pairs']}")
+    if van["budget_overflow"] or not van["finite"]:
+        failures.append(f"scale 4k vanilla frame: {van}")
+    cap = out["capacity"]
+    tr = cap["train"]
+    log(f"scale capacity: {cap['n_points']} points, capacity "
+        f"{cap['capacity']}; build {cap['build_s']:.2f} s (host peak "
+        f"{cap['build_peak_host_bytes'] / 2**30:.3f} GiB), load "
+        f"{cap['load_s']:.2f} s, layout {cap['layout_s']:.2f} s; "
+        f"{cap['live_bytes_before'] / 2**30:.3f} GiB held before the load; "
+        f"memory at rest {cap['memory_at_rest']}, with the block cache "
+        f"{cap['memory_with_block_cache']}; step (k_leaf {tr['k_leaf']}, "
+        f"k_node {tr['k_node']}) median {tr['step_ms_median']:.3f} ms, peak "
+        f"{tr['peak_bytes'] / 2**30:.3f} GiB (after the warm-up "
+        f"{tr['memory_after_warmup']}), pairs {tr['pairs_measured']} of "
+        f"{tr['max_pairs']} (call budget {tr['call_budget']}), kept leaf/node "
+        f"{tr['kept'][0]}; spill {cap['spill']}")
+    for label, res in (("trainstep", ts), ("capacity step", tr)):
+        if not res["finite"]:
+            failures.append(f"scale {label}: state not finite")
+        if res["budget_overflow"]:
+            failures.append(f"scale {label}: pair demand past the budget")
+    if cap["spill"]["engaged"]:
+        failures.append("scale capacity: maybe_spill engaged at "
+                        f"{cap['n_points']} points")
+    for key in ("scale_trainstep", "scale_spill_device",
+                "scale_spill_spill_sq", "scale_spill_spill_both",
+                "scale_capacity_train"):
+        ran, n = launches[key], n_calls[key]
+        if min(ran[k] for k in STEP_KERNELS) < n:
+            failures.append(f"scale {key}: launches {ran} in {n} steps")
+    ran = launches["scale_4k_vanilla_close"]
+    if min(ran[k] for k in SERVING_KERNELS) < 1:
+        failures.append(f"scale 4k vanilla frame: launches {ran}")
+    return failures
+
+
+def write_foreground_masks(root, log):
+    """masks/<view>.png beside images/<view>.png: 255 where a pixel is not
+    the scene's white background (every channel under CLI_MASK_WHITE)."""
+    import glob
+    import os
+
+    from log_tpu_torch.utils import image_io
+
+    shares = []
+    names = sorted(glob.glob(os.path.join(root, "images", "**", "*.png"),
+                             recursive=True))
+    for name in names:
+        img = image_io.imread(name)
+        fg = (img.min(axis=2) < CLI_MASK_WHITE).astype(np.uint8) * 255
+        shares.append(float(fg.mean() / 255))
+        rel = os.path.relpath(name, os.path.join(root, "images"))
+        image_io.imwrite(os.path.join(root, "masks", rel), fg)
+    log(f"cli_mask: {len(names)} masks, foreground share "
+        f"{min(shares):.3f}-{max(shares):.3f}")
+    return names, shares
+
+
+def cli_mask_phase(log):
+    """config/synthetic's scene made on the card by the port's
+    make_synthetic_scene, masks/ by thresholding its white background, and
+    config/synthetic_mask (MaskForeground: the loss restricted to the mask's
+    box) trained through log_tpu_torch.apps.train with the scene's root
+    overridden, then final_val (the masked validation). Every step must
+    launch K4, K3, K1 and K2 and hand the mask to the step; the tree
+    stage's loss must fall. Returns (json, launches, calls, failures)."""
+    import os
+    import shutil
+
+    import torch
+
+    from log_tpu_torch.apps import final_val, make_synthetic_scene, train
+    from log_tpu_torch.model.level_of_gaussian import LoG
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.utils.trainer import Trainer
+
+    for d in (CLI_MASK_SCENE, os.path.dirname(CLI_MASK_EXP)):
+        shutil.rmtree(d, ignore_errors=True)
+    failures, out, steps = [], {"phase_s": {}}, []
+    real_step, real_iter = Trainer.training_step, LoG.training_iteration
+    masked = []
+
+    def iteration(self, *args, **kw):
+        masked.append(kw.get("fg_mask") is not None)
+        return real_iter(self, *args, **kw)
+
+    def step(self, model, data):
+        before = dict(kernels.LAUNCHES)
+        n0 = len(masked)
+        ok, output, loss = real_step(self, model, data)
+        steps.append({"stage": model.stage_name,
+                      "loss": float(output["loss_dev"]),
+                      "masked": masked[n0:] == [True],
+                      "ran": {k: kernels.LAUNCHES[k] - before[k]
+                              for k in kernels.LAUNCHES}})
+        return ok, output, loss
+
+    opts = ["root", CLI_MASK_SCENE, "PLYNAME",
+            CLI_MASK_SCENE + "/sparse/0/sparse.npz", "exp", CLI_MASK_EXP,
+            "dataset.args.ext", ".png", "val_dataset.args.ext", ".png"]
+    with blocked_imports(log):
+        _, out["phase_s"]["scene"] = timed(lambda: make_synthetic_scene.main(
+            CLI_MASK_SCENE_ARGS))
+        (_, shares), out["phase_s"]["masks"] = timed(
+            lambda: write_foreground_masks(CLI_MASK_SCENE, log))
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with patched(Trainer, {"training_step": step}), \
+                patched(LoG, {"training_iteration": iteration}):
+            trainer, out["phase_s"]["train"] = timed(lambda: train.main(
+                ["--cfg", CLI_MASK_CFG, "split", "train"] + opts))
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        points = trainer.model.num_points
+        renderer = type(trainer.render).__name__
+        del trainer
+        record, out["phase_s"]["final_val"] = timed(lambda: final_val.main(
+            [CLI_MASK_CFG, os.path.join(CLI_MASK_EXP, "model_tree.pth")]
+            + opts))
+    ran = {k: sum(x["ran"][k] for x in steps) for k in launches}
+    tree = [x["loss"] for x in steps if x["stage"] == "tree"]
+    first = float(np.mean(tree[:CLI_MASK_WINDOW])) if tree else math.nan
+    last = float(np.mean(tree[-CLI_MASK_WINDOW:])) if tree else math.nan
+    uneven = [i for i, x in enumerate(steps)
+              if min(x["ran"][k] for k in STEP_KERNELS) < 1]
+    unmasked = [i for i, x in enumerate(steps) if not x["masked"]]
+    log(f"cli_mask: renderer {renderer}, {len(steps)} steps "
+        f"({len(tree)} in the tree stage) in {out['phase_s']['train']:.2f} "
+        f"s, {points} points, peak {peak / 2**30:.3f} GiB; tree loss first "
+        f"{CLI_MASK_WINDOW} {first:.5f}, last {CLI_MASK_WINDOW} {last:.5f}; "
+        f"launches {ran} in the steps, {launches} in all; masked "
+        f"validation psnr {record['psnr']:.3f} ssim {record['ssim']:.4f} l1 "
+        f"{record['l1']:.4f}")
+    if renderer != "MaskForeground":
+        failures.append(f"cli_mask: the config's renderer is {renderer}")
+    if not steps or uneven or unmasked:
+        failures.append(f"cli_mask: steps without K4, K3, K1 and K2 "
+                        f"{uneven[:4]}, without the mask {unmasked[:4]}")
+    if not (len(tree) >= 2 * CLI_MASK_WINDOW and last < first):
+        failures.append(f"cli_mask: tree loss did not fall ({first} -> "
+                        f"{last})")
+    if not math.isfinite(record["psnr"]):
+        failures.append(f"cli_mask: final-val {record}")
+    out.update(steps=len(steps), tree_steps=len(tree),
+               tree_loss_first_last=[first, last], points=points,
+               peak_bytes=peak, mask_share=[min(shares), max(shares)],
+               final_val={k: record[k] for k in CLI_VAL_KEYS})
+    return (out, {"cli_mask": ran, "cli_mask_other": {
+        k: launches[k] - ran[k] for k in launches}}, {"cli_mask": len(steps)},
+            failures)
+
+
 # ------------------------------------------ viewer, vanilla, viewer_cli, tools
 def decode_jpeg(data):
     """BGR uint8 of JPEG bytes (cv2, else PIL): a check, not on the path."""
@@ -4095,6 +4432,22 @@ def main() -> int:
     failures += cdfail
     cp_json, cp_launches, cp_steps, cpfail = cli_parallel_phase(log)
     failures += cpfail
+    # ------------------------------------- LoG's own scale, masked training
+    torch.cuda.empty_cache()
+    (sc_json, sc_launches, sc_calls, held["scale"], sc_rows,
+     scfail), sc_s = timed(lambda: scale_phase(device, log))
+    failures += scfail
+    sc_json["phase_s"] = sc_s
+    for name, kernel_rows in sc_rows.items():
+        if name == "rasterize_fwd":
+            rows[name]["modes"] += kernel_rows
+        else:
+            rows[name]["scale_calls"] = kernel_rows
+    (cm_json, cm_launches, cm_calls, cmfail), cm_s = timed(
+        lambda: cli_mask_phase(log))
+    failures += cmfail
+    cm_json["phase_s"]["total"] = cm_s
+    log(f"phase wall times: scale {sc_s:.2f} s, cli_mask {cm_s:.2f} s")
 
     log(json.dumps({
         "slice": slice_json,
@@ -4109,13 +4462,15 @@ def main() -> int:
         "sharded_step": ss_json, "sharded_render": sr_json,
         "cli_parallel": cp_json, "viewer": viewer_json,
         "vanilla": vanilla_json, "viewer_cli": vc_json, "tools": tools_json,
+        "scale": sc_json, "cli_mask": cm_json,
     }))
     kernels_json = []
     runs = dict(serve_runs, train=t_launches, growth=g_launches,
                 depth_step=d_launches, **s_launches, two_stage=ts_launches,
                 grown_frame=gf_launches, **cli_launches, **cd_launches,
                 sharded_step=ss_launches, **sr_launches, **cp_launches,
-                viewer=v_launches, **van_launches, viewer_cli=vc_launches)
+                viewer=v_launches, **van_launches, viewer_cli=vc_launches,
+                **sc_launches, **cm_launches)
     # main-path calls per phase: frames, training steps, or renders
     n_calls = dict({phase: FRAMES for phase in serve_runs},
                    train=TRAIN_STEPS, growth=GROWTH_STEPS,
@@ -4125,7 +4480,7 @@ def main() -> int:
                    **cli_calls, **cd_calls, sharded_step=SHARDED_STEPS,
                    **{k: FRAMES for k in sr_launches}, **cp_steps,
                    viewer=VIEWER_REQUESTS, vanilla=FRAMES, check_viewer=1,
-                   viewer_cli=VIEWER_CLI_REQUESTS)
+                   viewer_cli=VIEWER_CLI_REQUESTS, **sc_calls, **cm_calls)
     # the growth phases' own calls held against the plain versions
     for phase, errs in held.items():
         for name, err in errs.items():

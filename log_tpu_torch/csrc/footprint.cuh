@@ -50,6 +50,9 @@ constexpr int kChunk = 128;
 constexpr float kAlphaMin = (float)(1.0 / 255.0);
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = (float)1e-4;
+// the smallest normal f32: a final transmittance below it went through the
+// denormal range and lost its precision (see K2)
+constexpr float kTNormalMin = 1.17549435e-38f;
 // ln(kAlphaMin) in double (the plain mirror's math.log of the same f32)
 constexpr double kLnAlphaMin = -5.541263486019444;
 

@@ -15,7 +15,11 @@
 // over the chunks K1 composited (min(n_chunks, cend[t]), the same
 // 128-pair chunk base), BACK to front. Every pixel runs the recurrence
 // sequentially from its last pair to its first:
-//   T  <- tfinal, u <- tfinal * (bg . dC) - dalpha * tfinal;
+//   T  <- tfinal, u <- tfinal * (bg . dC) - dalpha * tfinal, with a
+//        tfinal below the smallest normal f32 taken as 0 (the forward's
+//        running T went denormal, so dividing it back up by the (1 - alpha)
+//        amplifies its rounding without bound: that pixel gives its pairs
+//        no gradient, as one whose T underflowed to 0);
 //   per pair with alpha kept (power <= 0, alpha >= 1/255):
 //     T_i = T / (1 - alpha)            (transmittance before the pair)
 //     w   = alpha * T_i, weight kept iff T_i (1 - alpha) >= 1e-4
@@ -137,7 +141,8 @@ rasterize_bwd_kernel(const float* __restrict__ pair, long long pstride,
   const float dc0 = dcolor[p];
   const float dc1 = dcolor[npix + p];
   const float dc2 = dcolor[2 * npix + p];
-  const float tf = tfinal[p];
+  const float tf_raw = tfinal[p];
+  const float tf = tf_raw < kTNormalMin ? 0.f : tf_raw;
   float T = tf;
   float u = tf * (bg[0] * dc0 + bg[1] * dc1 + bg[2] * dc2) - dalpha[p] * tf;
 

@@ -25,7 +25,7 @@ import torch
 
 from ..ops import gaussian_math as gm
 from ..ops.projection import NEAR_Z, SplatCols, screen_splat
-from ..ops.rasterize_tiled import pack2_bf16, unpack2_bf16
+from ..ops.rasterize_tiled import PACKED_ID_LIMIT, pack2_bf16, unpack2_bf16
 from ..ops.sh import sh_to_rgb
 from .tensor_tree import flat_cut_pre
 
@@ -183,9 +183,16 @@ def render_blocks(cols, meta: dict, cam: dict, min_resolution_pixel,
     """Block-pruned inference frame (the packed pipeline only). w_full: the
     cached capacity-axis weight-cull mask (`fused_root_cull`) or None.
     Returns (render (3,H,W), alpha (H,W), counts (4,): leaf, node, pair
-    demand, eligible blocks)."""
+    demand, eligible blocks). A budget of 2^24 pairs or more raises: the
+    block frame is held to the packed route, whose f32 run rows are exact
+    below it (the flat_slice frame renders such a budget whole)."""
     from .train_step import _render_packed_splats
 
+    if max_pairs >= PACKED_ID_LIMIT:
+        raise ValueError(
+            f"render_blocks: a pair budget of {max_pairs} reaches the packed "
+            f"route's limit of {PACKED_ID_LIMIT}; render this frame through "
+            f"fused_prepare_render (flat_slice)")
     S = cols.shape[2]
     B = cols.shape[1]
     n_rows = k_blocks * S

@@ -67,6 +67,9 @@ P_N_ROWS = 8
 # pair budgets and slice buckets are multiples of this; the column path
 # packs its run rows (K4) and expands them with K3p only when P is one
 PACK_CHUNK = 1 << 15
+# the packed expansion (K4 into K3p) carries run offsets and ids as f32
+# rows, exact below 2^24: a larger budget takes K3 (int32 rows)
+PACKED_ID_LIMIT = 1 << 24
 _STATS_LEVEL = {False: 0, "weights": 1, True: 2}
 
 
@@ -272,12 +275,12 @@ def expand_sort_pairs(splats, colors, image_height: int, image_width: int,
               if gid_ids is None else gid_ids.to(torch.int32))
     val_rows = [px_x, px_y, cn_xx, cn_xy, cn_yy, splats.opacity,
                 col_r, col_g, col_b, splats.depth]
-    if (cols_mode and runs_tail_only and A % 512 == 0 and A < 1 << 24
-            and P % PACK_CHUNK == 0):
+    if (cols_mode and runs_tail_only and A % 512 == 0
+            and A < PACKED_ID_LIMIT and P % PACK_CHUNK == 0):
         # K4 packs the 15 run rows (ints as exact f32, ids < 2^24 on a
         # slice), the window sentinel goes into rows 13/14 past P, and K3p
         # expands them
-        if P >= 1 << 24:
+        if P >= PACKED_ID_LIMIT:
             raise ValueError(f"slice too large for f32 id rows: {P}")
         offs_f = offsets.to(torch.float32)
         next_f = torch.cat([offs_f[1:], offs_f.new_full((1,), float(A))])
@@ -747,6 +750,10 @@ def rasterize_backward_plain(pair_data, tile_start, tile_count, cend, tfinal,
     n_walk = torch.minimum(n_chunks, cend.to(torch.int64))
     k_iota = torch.arange(PAIR_CHUNK, device=dev)
     t_fin = _image_to_tiles(tfinal[None], tiles_x, tiles_y)[:, 0]
+    # a final transmittance below the smallest normal f32 went through the
+    # denormal range: dividing it back up would amplify its rounding without
+    # bound, so the pixel gives its pairs no gradient (as T = 0 does)
+    t_fin = torch.where(t_fin < torch.finfo(torch.float32).tiny, 0.0, t_fin)
     dC = _image_to_tiles(dcolor, tiles_x, tiles_y)  # (T, 3, TILE_PIX)
     d_alpha = _image_to_tiles(dalpha[None], tiles_x, tiles_y)[:, 0]
     bg = background.to(torch.float32)

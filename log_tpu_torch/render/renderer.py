@@ -214,12 +214,14 @@ class NaiveRendererAndLoss(BaseRender):
         given, extra_colors (capacity, C). The pair budget comes from the
         prepared cut's kept counts, or from the capacity where the prepare
         pass left none (BaseGaussian's frustum flag); a frame whose pair
-        demand exceeds it is rendered again at its demand (up to
-        pick_max_pairs' cap of 2^23), so that no pair is dropped below the
-        cap. Returns device tensors ('render' (C, H, W), 'alpha' (H, W),
-        'depth_cam' (capacity,), ...; on the tiled path also 'pair_total'
-        and the budget, 'max_pairs')."""
-        from ..ops import pick_backend, pick_max_pairs, rasterize_ref
+        demand exceeds it is rendered again at a budget sized from its
+        demand (`budget_for_demand`, past 2^23 where it must be), so that no
+        pair is dropped; where that budget does not fit on the device it
+        raises, naming the demand. Returns device tensors ('render'
+        (C, H, W), 'alpha' (H, W), 'depth_cam' (capacity,), ...; on the
+        tiled path also 'pair_total' and the budget, 'max_pairs')."""
+        from ..ops import (budget_for_demand, pick_backend, pick_max_pairs,
+                           rasterize_ref)
 
         cam = camera_device(camera, model.device)
         vf = model.visibility_flag
@@ -256,9 +258,15 @@ class NaiveRendererAndLoss(BaseRender):
             if demand > max_pairs:
                 # eight tiles a point fell short (large splats on the
                 # screen): render again at the frame's measured demand
-                max_pairs = pick_max_pairs(demand, per_point=1)
-                out = rasterize_tiled(**kwargs, max_pairs=max_pairs,
-                                      with_stats=False)
+                max_pairs = budget_for_demand(demand)
+                try:
+                    out = rasterize_tiled(**kwargs, max_pairs=max_pairs,
+                                          with_stats=False)
+                except torch.cuda.OutOfMemoryError as exc:
+                    raise RuntimeError(
+                        f"render_one: the frame needs {demand} pairs; their "
+                        f"budget of {max_pairs} does not fit on "
+                        f"{model.device}") from exc
             out["max_pairs"] = max_pairs
             return out
         return rasterize_ref.rasterize(**kwargs)

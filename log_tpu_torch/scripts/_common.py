@@ -1,0 +1,322 @@
+"""Shared pieces of the scale scripts: the device rule, the card line, the
+orbit camera of the repo's scripts (`make_cam`), the synthetic tree's load,
+and the honest timing loop of the frame cells.
+
+The honest loop sizes a cell's pair budget from the unclamped demand that
+its sizing frames measured (`budget_for_demand`), times the frames between
+two `torch.cuda.synchronize()` calls and reads every timed frame's demand
+(`counts[2]`) after the loop. If a timed frame's demand exceeded the
+budget, the frames are timed again at a budget raised from that demand, so
+that no reported frame dropped a pair (`bench.py`'s `measure_honest`).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import math
+import subprocess
+import time
+import tracemalloc
+
+import numpy as np
+import torch
+
+from ..dataset.base import prepare_camera
+from ..model.gaussian import next_capacity
+from ..ops import budget_for_demand, kernels
+from ..render.renderer import camera_device
+
+SEED = 0
+# model.args of config/synthetic/level_of_gaussian.yml without init_ply
+MODEL_ARGS = {
+    "use_view_correction": True,
+    "gaussian": {"xyz_scale": 1.0, "sh_degree": 1},
+    "optimizer": {
+        "optimize_keys": ["xyz", "colors", "scaling", "opacity", "rotation",
+                          "shs"],
+        "opt_all_levels": True,
+        "lr_dict": {"xyz": 0.00016, "xyz_final": 0.0000016, "xyz_scale": 1.0,
+                    "colors": 0.0025, "shs": 0.000125, "scaling": 0.005,
+                    "opacity": 0.05, "rotation": 0.001, "max_steps": 600},
+    },
+    "tree": {"max_child": 4, "max_level": 30},
+    "densify_and_remove": {},
+}
+CURRENT_DEPTH = 20
+CHECK_SCALE = 4
+REBUMP = 1.15  # headroom of a budget raised from an overflowing demand
+TRIES = 3
+
+
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller asks for the CPU; raises where CUDA is
+    asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
+                           "CPU")
+    return dev
+
+
+def card_line(dev) -> str | None:
+    """`nvidia-smi --query-gpu=name,power.limit` of the card (None on the
+    CPU)."""
+    if dev.type != "cuda":
+        return None
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_bytes(dev) -> int | None:
+    """The peak of allocated device memory since reset_peak (None on the
+    CPU: a CPU run has no device memory to report)."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    return int(torch.cuda.max_memory_allocated(dev))
+
+
+def live_bytes(dev) -> int | None:
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    return int(torch.cuda.memory_allocated(dev))
+
+
+def held(hold, label: str):
+    """hold(label), the caller's context for a cell's first frame or step
+    (chip_smoke.py records its kernel calls there), or nothing."""
+    return contextlib.nullcontext() if hold is None else hold(label)
+
+
+def launches_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+
+
+def make_cam(theta, h, w, focal, height=18.0, radius=22.0) -> dict:
+    """The repo's scripts' orbit camera at angle theta, looking at the
+    origin, as a render-ready host camera."""
+    pos = np.array([radius * math.cos(theta), radius * math.sin(theta),
+                    height])
+    fwd = -pos / np.linalg.norm(pos)
+    right = np.cross(fwd, np.array([0, 0, 1.0]))
+    right /= np.linalg.norm(right)
+    R = np.stack([right, np.cross(fwd, right), fwd])
+    K = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]])
+    return prepare_camera({"K": K, "R": R, "T": (-R @ pos).reshape(3, 1),
+                           "H": h, "W": w, "center": pos.reshape(3, 1)},
+                          1, 0.01, 1000.0)
+
+
+def orbit(n, h, w, focal, dev, height=18.0, radius=22.0, turns=None):
+    """n device cameras at 2 pi i / turns (turns defaults to n)."""
+    turns = n if turns is None else turns
+    return [camera_device(make_cam(2 * math.pi * i / turns, h, w, focal,
+                                   height, radius), dev) for i in range(n)]
+
+
+def load_tree(n_roots: int, dev, seed: int = SEED):
+    """The synthetic tree of n_roots roots loaded as chip_smoke.py loads
+    it: build_checkpoint, then load_object -> LoG.load_state_dict (eval
+    mode, SH enabled). Returns (model, checkpoint, build seconds, the peak
+    of the host allocations numpy made for the build, by tracemalloc)."""
+    from ..utils.config import load_object
+    from ..utils.synth_tree import build_checkpoint
+
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    ckpt = build_checkpoint(n_roots, seed=seed)
+    build_s = time.perf_counter() - t0
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    model = load_object("LoG.model.level_of_gaussian.LoG", MODEL_ARGS,
+                        device=dev)
+    model.load_state_dict(ckpt)
+    model.set_state(enable_sh=True)
+    model.eval()
+    return model, ckpt, build_s, peak
+
+
+def finite(tensors) -> bool:
+    """Every float tensor in a (nested) dict is finite."""
+    if isinstance(tensors, dict):
+        return all(finite(v) for v in tensors.values())
+    if isinstance(tensors, torch.Tensor) and tensors.is_floating_point():
+        return bool(torch.isfinite(tensors).all())
+    return True
+
+
+def honest_frames(frame, cull, cams, max_pairs: int, frames: int,
+                  cull_every: int, dev, hold=None, label: str = "frame"):
+    """Times `frames` frames over cams[2:] after two warm-up frames (cams[0]
+    and cams[1]); the cull (cull(cam) -> w_full) runs every cull_every
+    frames, before the frame. frame(cam, w_full, max_pairs) -> (image,
+    counts) with counts[2] the frame's unclamped pair demand. The first
+    warm-up frame and its cull run inside hold(label). Where a timed
+    frame's demand passed the budget, the frames are timed again at
+    budget_for_demand(demand * REBUMP), up to TRIES times. Reports the last
+    timed frame's finiteness and spread."""
+    budget = max_pairs
+    for attempt in range(TRIES):
+        if attempt:
+            budget = budget_for_demand(int(demand * REBUMP))
+        with (held(hold, label) if attempt == 0
+              else contextlib.nullcontext()):
+            w0 = cull(cams[0])
+            frame(cams[0], w0, budget)
+        frame(cams[1], w0, budget)
+        before = dict(kernels.LAUNCHES)
+        counts, w = [], w0
+        sync(dev)
+        t0 = time.perf_counter()
+        for i in range(frames):
+            if i % cull_every == 0:
+                w = cull(cams[2 + i])
+            img, c = frame(cams[2 + i], w, budget)
+            counts.append(c)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        launched = launches_since(before)
+        c = torch.stack([x.to(torch.int64) for x in counts]).cpu().numpy()
+        demand = int(c[:, 2].max())
+        if demand <= budget:
+            break
+    ms = dt * 1e3 / frames
+    return {
+        "ms_per_frame": ms, "fps": 1e3 / ms, "frames": frames,
+        "cull_every": cull_every, "max_pairs": int(budget),
+        "pairs_measured": demand,
+        "demand_per_frame": [int(x) for x in c[:, 2]],
+        "cut_per_frame": [int(x) for x in c[:, 0] + c[:, 1]],
+        "budget_overflow": demand > budget,
+        "budget_rebumped": budget != max_pairs, "launches": launched,
+        "image_finite": bool(torch.isfinite(img).all()),
+        "image_std": float(img.std()),
+    }
+
+
+def honest_steps(step, cfg, steps: int, warmup: int, dev, hold=None,
+                 label: str = "step") -> dict:
+    """Times a training step with a pair budget that holds its demand.
+    step(i, cfg) -> metrics runs step i at cfg (a StepConfig) and advances
+    the caller's state. The warm-up steps 0 .. warmup - 1 run at
+    cfg.max_pairs and measure the unclamped demand (pair_total); step
+    `warmup` runs inside hold(label) at the budget max(cfg.max_pairs,
+    budget_for_demand(demand * REBUMP)), and the timed steps after it at
+    the same budget, a synchronize around each; where one of them passed
+    it they are timed again at a budget raised from its demand, up to TRIES
+    times. The peak device memory is that of the timed steps."""
+    demand = 0
+    for i in range(warmup):
+        demand = max(demand, int(step(i, cfg)["pair_total"]))
+    budget = max(cfg.max_pairs, budget_for_demand(int(demand * REBUMP)))
+    with held(hold, label):
+        step(warmup, dataclasses.replace(cfg, max_pairs=budget))
+    for _ in range(TRIES):
+        run_cfg = dataclasses.replace(cfg, max_pairs=budget)
+        reset_peak(dev)
+        before = dict(kernels.LAUNCHES)
+        ms, metrics = [], []
+        for i in range(warmup + 1, warmup + 1 + steps):
+            sync(dev)
+            t0 = time.perf_counter()
+            m = step(i, run_cfg)
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(m)
+        launched = launches_since(before)
+        peak = peak_bytes(dev)
+        pairs = [int(m["pair_total"]) for m in metrics]
+        if max(pairs) <= budget:
+            break
+        budget = budget_for_demand(int(max(pairs) * REBUMP))
+    return {"steps": steps, "warmup": warmup, "step_ms": ms,
+            "step_ms_median": float(np.median(ms)), "max_pairs": budget,
+            "call_budget": cfg.max_pairs, "warmup_demand": demand,
+            "pairs_measured": max(pairs),
+            "budget_overflow": max(pairs) > budget,
+            "budget_rebumped": budget != cfg.max_pairs,
+            "loss": [float(m["loss"]) for m in metrics],
+            "kept": [[int(x) for x in m["counts"].cpu()] for m in metrics],
+            "peak_bytes": peak, "launches": launched}
+
+
+def block_cell(model, cams, min_res: float, frames: int, cull_every: int,
+               dev, sizing=(8, 16), hold=None, label="blocks"):
+    """The block-pruned frame (render_blocks after optimize_render_layout)
+    through the honest loop. Sizing frames at cams[0] and cams[sizing]
+    (full block and slice buckets) give the cut, the pair demand and the
+    eligible blocks; the slice bucket is 1.2x the cut, the block bucket
+    1.3x the eligible blocks (steps of 16), the pair budget
+    budget_for_demand(1.3x the demand). Returns (cell dict, (frame,
+    cull)), the closures the cell timed."""
+    from ..model.block_render import render_blocks
+    from ..model.train_step import fused_root_cull
+    from ..ops import pick_max_pairs
+
+    cache = model._block_cache
+    if cache is None:
+        raise RuntimeError("block_cell needs optimize_render_layout() first")
+    params, tree = model.gaussian.params(), model.tree_device()
+    cap, n = model.capacity, model.num_points
+    H, W = cams[0]["image_height"], cams[0]["image_width"]
+    B = cap // cache["S"]
+    bg = torch.zeros(3, device=dev)
+
+    def cull(cam):
+        return fused_root_cull(
+            params, tree, cam, n, H, W, prep_backend="tiled",
+            prep_max_pairs=pick_max_pairs(cap, per_point=1),
+            check_scale=CHECK_SCALE, n_roots=model.n_roots_bucket,
+            cap_sort=0)
+
+    def blocks(cam, w_full, k_blocks, k_visible, max_pairs):
+        return render_blocks(
+            cache["cols"], cache["meta"], cam, float(min_res), CURRENT_DEPTH,
+            bg, H, W, k_blocks=k_blocks, k_visible=k_visible,
+            max_pairs=max_pairs, w_full=w_full)
+
+    # the sizing frames read the unclamped demand, so their own budget
+    # only needs to be large enough to keep them cheap
+    c = []
+    for i in (0,) + tuple(min(s, len(cams) - 1) for s in sizing):
+        c.append(blocks(cams[i], cull(cams[i]), B, min(1 << 21, cap),
+                        min(1 << 22, pick_max_pairs(cap, per_point=1)))[2]
+                 .cpu().numpy())
+    c = np.stack(c)
+    cut = int(c[0, :2].sum())
+    k_vis = min(next_capacity(int(cut * 1.2), 1 << 15), cap)
+    demand = int(max(c[:, 2].max(), 1))
+    n_elig = int(c[:, 3].max())
+    kb = min(B, max(16, -(-int(n_elig * 1.3) // 16) * 16))
+
+    def frame(cam, w_full, max_pairs):
+        img, _, counts = blocks(cam, w_full, kb, k_vis, max_pairs)
+        return img, counts
+
+    budget = budget_for_demand(int(demand * 1.3))
+    cell = honest_frames(frame, cull, cams, budget, frames, cull_every, dev,
+                         hold, label)
+    cell.update(min_res_pixel=float(min_res), cut=cut, k_vis=k_vis,
+                cut_overflow=max(cell["cut_per_frame"]) > k_vis,
+                sizing_demand=demand, k_blocks=kb, blocks_eligible=n_elig,
+                blocks_total=B)
+    return cell, (frame, cull)
+
+
+def emit(out: dict) -> None:
+    print(json.dumps(out), flush=True)

@@ -76,14 +76,31 @@ def build_checkpoint(n_roots: int, seed: int = 0, sh_degree: int = 1) -> dict:
     split2_local = (m // 3) * 10 + (m % 3)  # 3 of every 10 depth-1 rows
     c2_xyz, c2_scal = children(c1_xyz, c1_scal, split2_local)
 
-    xyz = np.concatenate([xyz_r, c1_xyz, c2_xyz])
+    f32 = np.float32
+    # each attribute goes to float32 as soon as it is drawn (the draws and
+    # their order are unchanged), which keeps the host's peak near twice
+    # the checkpoint's bytes at 10M points
+    xyz = np.concatenate([xyz_r, c1_xyz, c2_xyz]).astype(f32)
     scal = np.concatenate([scal_r, c1_scal, c2_scal])
-    colors = rng.uniform(0.0, 1.0, (n, 3))
+    del c1_xyz, c2_xyz, c1_scal, c2_scal
+    out = {
+        "gaussian.xyz": xyz,
+        "gaussian.colors": ((rng.uniform(0.0, 1.0, (n, 3)) - 0.5)
+                            / SH_C0).astype(f32),
+    }
     q = rng.standard_normal((n, 4))
-    rot = q / np.linalg.norm(q, axis=1, keepdims=True)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    out["gaussian.rotation"] = q.astype(f32)
+    del q
     opac = rng.uniform(0.3, 0.95, (n, 1))
+    out["gaussian.opacity"] = np.log(opac / (1.0 - opac)).astype(f32)
+    del opac
     n_sh = (sh_degree + 1) ** 2 - 1
-    shs = 0.1 * rng.standard_normal((n, n_sh, 3))
+    out["gaussian.shs"] = (0.1 * rng.standard_normal((n, n_sh, 3))).astype(f32)
+    out["gaussian.scaling"] = np.log(scal).astype(f32)
+    out["counter.radius3d_min"] = (0.5 * scal.min(axis=1)).astype(f32)
+    out["counter.radius3d_max"] = (2.0 * scal.max(axis=1)).astype(f32)
+    del scal
 
     split2_rows = split2_local + n_roots
     depth = np.concatenate([np.zeros(n_roots, np.int32),
@@ -106,15 +123,7 @@ def build_checkpoint(n_roots: int, seed: int = 0, sh_degree: int = 1) -> dict:
     root_id = np.arange(n, dtype=np.int32)
     root_id[n_roots:n_roots + n1] = index_parent[n_roots:n_roots + n1]
     root_id[n_roots + n1:] = root_id[index_parent[n_roots + n1:]]
-
-    f32 = np.float32
-    return {
-        "gaussian.xyz": xyz.astype(f32),
-        "gaussian.colors": ((colors - 0.5) / SH_C0).astype(f32),
-        "gaussian.scaling": np.log(scal).astype(f32),
-        "gaussian.opacity": np.log(opac / (1.0 - opac)).astype(f32),
-        "gaussian.rotation": rot.astype(f32),
-        "gaussian.shs": shs.astype(f32),
+    out.update({
         "tree.tree": tree,
         "tree.root_index": np.arange(n_roots, dtype=np.int32),
         "tree.node_index": node_index,
@@ -122,9 +131,8 @@ def build_checkpoint(n_roots: int, seed: int = 0, sh_degree: int = 1) -> dict:
         "tree.local_index": local_index,
         "tree.depth": depth,
         "tree.root_id": root_id,
-        "counter.radius3d_min": (0.5 * scal.min(axis=1)).astype(f32),
-        "counter.radius3d_max": (2.0 * scal.max(axis=1)).astype(f32),
-    }
+    })
+    return out
 
 
 def roots_record(ckpt: dict, n_roots: int) -> dict:

@@ -350,6 +350,56 @@ def test_rasterize_forward_adversarial(cuda, with_stats, seed):
             assert torch.equal(_bits(a), _bits(b)), variant
 
 
+def denormal_tile(n_opaque=20, n_soft=600):
+    """K2's inputs for one 8 x 128 tile whose every pixel is covered by
+    n_opaque pairs of alpha 0.99, then n_soft of alpha 0.3: the final
+    transmittance of K1's sequential f32 product (emulated here) falls to
+    ~1e-40 and then stays at the smallest denormal, which rounds back to
+    itself when multiplied by 0.7. Returns the args of
+    rasterize_backward."""
+    from log_tpu_torch.ops import rasterize_tiled as rt
+
+    n = n_opaque + n_soft
+    A = -(-n // rt.PAIR_CHUNK) * rt.PAIR_CHUNK
+    pair = np.zeros((rt.N_ROWS, A + rt.PAIR_CHUNK), np.float32)
+    pair[rt.ROW_PX, :n], pair[rt.ROW_PY, :n] = 64.0, 4.0
+    pair[rt.ROW_CXX, :n] = pair[rt.ROW_CYY, :n] = 1e-4
+    pair[rt.ROW_OPAC, :n] = [0.999] * n_opaque + [0.3] * n_soft
+    pair[rt.ROW_R:rt.ROW_B + 1, :n] = 0.5
+    ys, xs = np.mgrid[0:rt.TILE_H, 0:rt.TILE_W].astype(np.float32)
+    T = np.ones((rt.TILE_H, rt.TILE_W), np.float32)
+    for k in range(n):  # K1's sequential product, in f32
+        dx, dy = pair[rt.ROW_PX, k] - xs, pair[rt.ROW_PY, k] - ys
+        power = np.float32(-0.5) * (pair[rt.ROW_CXX, k] * dx * dx
+                                    + pair[rt.ROW_CYY, k] * dy * dy)
+        alpha = np.minimum(np.float32(0.99),
+                           pair[rt.ROW_OPAC, k] * np.exp(power))
+        T = T * np.where(alpha >= np.float32(1 / 255), 1 - alpha,
+                         np.float32(1)).astype(np.float32)
+    t = torch.from_numpy
+    return (t(pair), torch.zeros(1, dtype=torch.int32),
+            torch.tensor([n], dtype=torch.int32),
+            torch.tensor([A // rt.PAIR_CHUNK], dtype=torch.int32),
+            t(T), torch.full((3, rt.TILE_H, rt.TILE_W), 0.1),
+            torch.zeros(rt.TILE_H, rt.TILE_W), torch.zeros(3), 1, 1)
+
+
+def test_rasterize_backward_denormal_transmittance(cuda):
+    """K2 where K1's transmittance stuck at a denormal (F10): no gradient
+    for those pixels, as the plain version; a few layers above the normal
+    range keep their gradients, to the K2 tolerance."""
+    for kw in ({}, {"n_opaque": 2, "n_soft": 10}):
+        args = denormal_tile(**kw)
+        dev_args = [a.to(cuda) if isinstance(a, torch.Tensor) else a
+                    for a in args]
+        got = rt.rasterize_backward(*dev_args).cpu()
+        want = rt.rasterize_backward_plain(*args)
+        assert torch.isfinite(got).all()
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-3 * max(scale, 1e-30)
+        assert (scale > 0) == bool(kw)
+
+
 @pytest.mark.parametrize("seed", [3, 4])
 def test_rasterize_backward_adversarial(cuda, seed):
     """K2 on adversarial records: within 1e-3 of the plain version's

@@ -38,7 +38,9 @@ def test_package_imports_without_jax():
                  "apps.calibration.align_with_cam",
                  "apps.calibration.align_with_gps",
                  "apps.calibration.read_gps_info",
-                 "apps.calibration.run_midas"):
+                 "apps.calibration.run_midas", "scripts._common",
+                 "scripts.bench_trainstep", "scripts.bench_spill",
+                 "scripts.bench_4k", "scripts.bench_capacity"):
         assert f"log_tpu_torch.{name}" in names
     code = (
         "import importlib, sys\n"

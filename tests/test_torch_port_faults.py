@@ -6,7 +6,10 @@ the oracle step's counters hold values (F1-F5); `vis` renders a model
 without `render_fused` in two phases (F6), `render_one` sizes the pair
 budget from the capacity where the prepare pass left no counts (F7), and
 renders a frame whose pair demand exceeds that budget again at its demand
-instead of dropping pairs (F8; the JAX package drops them)."""
+instead of dropping pairs (F8; the JAX package drops them), also past the
+2^23 rail (F9; the flat_slice frame takes K3 at a budget past the packed
+route's 2^24, the block frame raises there); K2 gives no gradient through
+a final transmittance that went denormal (F10)."""
 import math
 import os
 
@@ -21,6 +24,16 @@ from log_tpu_torch.ops import rasterize_ref
 from log_tpu_torch.utils.trainer import Trainer
 
 SIZES = (None, 100, 16384, 16385, 10 ** 6)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Small tensors and many ops: one intra-op thread (parallel test
+    workers would oversubscribe the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 # ----------------------------------------------------- the backend override
@@ -331,3 +344,119 @@ def test_render_one_renders_the_demand_past_the_budget(monkeypatch):
     demand = int(tiled["pair_total"])
     assert demand > ops.pick_max_pairs(model.gaussian.num_points)
     assert tiled["max_pairs"] == ops.pick_max_pairs(demand, per_point=1)
+
+
+def test_render_one_keeps_the_pairs_past_the_rail(monkeypatch):
+    """F9: F8's second binning sized its budget with pick_max_pairs, whose
+    rail (2^23) then dropped the pairs past it without a word. With the
+    rail lowered to 2^16 in the port, a frame that needs more must keep
+    them all (budget_for_demand) and equal the same frame rendered at a
+    budget that holds every pair."""
+    from log_tpu_torch.render.renderer import NaiveRendererAndLoss
+
+    monkeypatch.setenv("LOG_TPU_BACKEND", "tiled")
+    model = _FrustumModel(n=3000, scale=0.5, counts=True)
+    cam = _frustum_camera(h=128, w=256, focal=300.0)
+    renderer = NaiveRendererAndLoss(split="demo", device="cpu")
+    model.prepare_from_camera(cam)
+    model.visibility_flag["counts"] = (40_000, 0)  # 8 x 40,000 pairs
+    roomy = renderer.render_one(model, cam, renderer.background)
+    assert int(roomy["pair_total"]) <= roomy["max_pairs"]
+    real = ops.pick_max_pairs
+
+    def railed(k_visible, per_point=8):
+        return min(real(k_visible, per_point), 1 << 16)
+
+    monkeypatch.setattr(ops, "pick_max_pairs", railed)
+    model.prepare_from_camera(cam)
+    out = renderer.render_one(model, cam, renderer.background)
+    demand = int(out["pair_total"])
+    assert demand > 1 << 16
+    assert out["max_pairs"] >= demand
+    assert out["max_pairs"] == ops.budget_for_demand(demand)
+    for key in ("render", "alpha"):
+        np.testing.assert_allclose(out[key].numpy(), roomy[key].numpy(),
+                                   rtol=0, atol=1e-6)
+
+
+def test_render_blocks_refuses_a_budget_past_the_packed_route():
+    """F9, the block frame: it is held to the packed route (K4 into K3p),
+    whose f32 run rows are exact below 2^24, so a budget there raises
+    rather than truncating."""
+    from log_tpu_torch.model.block_render import render_blocks
+    from log_tpu_torch.ops.rasterize_tiled import PACKED_ID_LIMIT
+
+    assert PACKED_ID_LIMIT == 1 << 24
+    with pytest.raises(ValueError, match="packed route"):
+        render_blocks(None, None, None, 3.0, 20, None, 64, 256, k_blocks=1,
+                      k_visible=1, max_pairs=PACKED_ID_LIMIT)
+
+
+def test_flat_slice_past_the_packed_limit_takes_k3(monkeypatch):
+    """F9, the flat_slice frame: a budget at the packed route's limit takes
+    the unpacked expansion (K3, int32 rows) and renders the same frame as
+    the packed route (K4 into K3p) below it. The limit is lowered to the
+    test's budget here, so that no 2^24-pair buffer is needed."""
+    from log_tpu_torch.model import train_step as ts
+    from log_tpu_torch.ops import expand as ex
+    from log_tpu_torch.ops import rasterize_tiled as rt
+    from log_tpu_torch.scripts import _common as C
+
+    monkeypatch.setenv("LOG_TPU_PACK_SORT_KEYS", "0")
+    model, _, _, _ = C.load_tree(6000, "cpu")
+    n, cap = model.num_points, model.capacity
+    cam = C.orbit(1, 64, 256, 120.0, "cpu")[0]
+    kw = dict(image_height=64, image_width=256, k_visible=rt.PACK_CHUNK,
+              sh_degree=0, stage_has_tree=True, num_levels=3,
+              backend="tiled", max_pairs=1 << 16, check_scale=4,
+              cut_method="flat_slice", n_roots=model.n_roots_bucket,
+              prep_backend="tiled", prep_max_pairs=1 << 15, check_cull=False)
+    args = (model.gaussian.params(), model.tree_device(), cam, n,
+            model._leaf_opt_dev, 3.0, 20, torch.zeros(3))
+    calls = []
+    real = ex.expand_packed_with_keys
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(ex, "expand_packed_with_keys", counted)
+    packed = ts.fused_prepare_render(*args, **kw)
+    assert calls and cap == rt.PACK_CHUNK
+
+    def refused(*a, **k):
+        raise AssertionError("K3p ran past the packed route's limit")
+
+    monkeypatch.setattr(ex, "expand_packed_with_keys", refused)
+    monkeypatch.setattr(rt, "PACKED_ID_LIMIT", kw["max_pairs"])
+    whole = ts.fused_prepare_render(*args, **kw)
+    assert int(whole[3]) == int(packed[3]) <= kw["max_pairs"]
+    for a, b in zip(whole[:3], packed[:3]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert float(whole[0].std()) > 0.01
+
+
+# ------------------------- F10: K2 through a denormal final transmittance
+def test_backward_through_a_denormal_transmittance():
+    """F10: where a pixel's running transmittance went denormal (tens of
+    nearly opaque layers; 100k points at 1920x1088 reach it on the card),
+    K1's product can stick at the smallest denormal, and dividing it back
+    up by each (1 - alpha) overflowed: K2 and its plain version gave
+    gradients of 1e20 and more, or NaN. Such a pixel now gives its pairs no
+    gradient, as one whose transmittance underflowed to 0 (ROADMAP fact
+    m)."""
+    from log_tpu_torch.ops import rasterize_tiled as rt
+    from test_torch_kernels_cuda import denormal_tile
+
+    args = denormal_tile()
+    tf = args[4]
+    assert float(tf.min()) > 0.0 and float(tf.max()) < 1e-44  # denormal
+    grad = rt.rasterize_backward(*args)
+    assert torch.isfinite(grad).all()
+    assert float(grad.abs().max()) == 0.0
+    # above the normal range the recurrence is untouched: few layers give
+    # finite, non-zero gradients
+    args = denormal_tile(n_opaque=2, n_soft=10)
+    assert float(args[4].min()) > torch.finfo(torch.float32).tiny
+    grad = rt.rasterize_backward(*args)
+    assert torch.isfinite(grad).all() and float(grad.abs().max()) > 0.0
