@@ -205,7 +205,26 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    none over its budget; the first frame or step of the SCALE_HELD cells
    recorded and held against the plain versions (K3p and K5 of the 4K and
    10.26M block frames timed);
-22. cli_mask: config/synthetic's scene made on the card, masks/ by
+22. dissect (after scale): log_tpu_torch/scripts' dissection and probe
+   scripts with DISSECT_REPS repeats: bench_frame_dissect on the 3.24M
+   tree built on the card (build_scene + pad_scene, root_major) at
+   1920x1088, min_res 3 (the flat_slice and block frames' stage tables,
+   each stage timed alone on the state its predecessors left: host and
+   device ms, launches, syncs, peak; headline, cull with both expansion
+   branches, kernel2, prims, blocksize, demand), the init-stage step's
+   cumulative prefixes at 100k points, bench_kernel (K1 and K5 on
+   synthetic sorted tables), the sort (DISSECT_SORT_SIZES x
+   DISSECT_SORT_PAYLOADS), gather and block-take probes,
+   backend_equivalence on config/synthetic (tiled and oracle) and
+   check_sharded_fullscale at 2 gloo ranks on the card machine's CPU
+   (DISSECT_SHARDED_FRAMES frames); every table printed on its own line;
+   the stage chains' frames bit-equal to fused_prepare_render's and
+   render_blocks', the full prefix to fused_prepare_train_step (loss,
+   parameters, moments, counters), no timed demand past its budget, no
+   bucket overflow; the first chain runs, the K6 compaction, kernel2's K5,
+   the first full step and bench_kernel's K4, K1 and K5 calls held
+   against the plain versions;
+23. cli_mask: config/synthetic's scene made on the card, masks/ by
    thresholding its white background, config/synthetic_mask through
    log_tpu_torch.apps.train (MaskForeground: every step must launch K4,
    K3, K1 and K2 with the mask handed to it, the tree stage's loss must
@@ -467,6 +486,23 @@ CLI_MASK_CFG = "config/synthetic_mask/train.yml"
 CLI_MASK_SCENE_ARGS = [CLI_MASK_SCENE, "200", "16", "120", "160", ".png"]
 CLI_MASK_WHITE = 250  # a pixel with every channel at least this is background
 CLI_MASK_WINDOW = 20  # steps at each end of the tree stage (its base_iter)
+# the dissect phase (log_tpu_torch/scripts' dissection and probe scripts)
+DISSECT_REPS = 3
+DISSECT_FRAME_PHASES = ("stages", "blocks", "headline", "cull", "kernel2",
+                        "prims", "blocksize", "demand")
+DISSECT_SHARDED_FRAMES = 4
+# the sort probe's smallest and largest sizes and three payload counts
+# (its whole sweep takes ~10 s of the phase)
+DISSECT_SORT_SIZES = (1 << 20, 1 << 22)
+DISSECT_SORT_PAYLOADS = (1, 7, 15)
+DISSECT_EQUIV_OUT = "output/chip_equiv"
+DISSECT_KERNELS = {
+    "dissect_frame": ("pack_rows", "expand_packed", "rasterize_fwd_packed",
+                      "rasterize_fwd", "stream_compact"),
+    "dissect_trainstep": ("pack_rows", "expand_with_keys", "rasterize_fwd",
+                          "rasterize_bwd"),
+    "dissect_kernel": ("pack_rows", "rasterize_fwd", "rasterize_fwd_packed"),
+}
 
 
 def make_cam(theta, height=18.0, radius=22.0, h=H, w=W, focal=1400.0):
@@ -1043,9 +1079,10 @@ def compare_packed_kernels(calls, log, profile=True):
     return rows, failures
 
 
-def compare_k6(calls, log):
+def compare_k6(calls, log, profile=True):
     """K6 against its plain version on frame 0's compaction inputs:
-    bit-exact, in one launch per call."""
+    bit-exact, in one launch per call (the profiler's count; with profile
+    False neither the profiler's time nor its count)."""
     import torch
 
     from log_tpu_torch.ops import compact
@@ -1059,9 +1096,9 @@ def compare_k6(calls, log):
     err = max(float((k[0][n].double() - p[0][n].double()).abs().nan_to_num()
                     .max()) for n in k[0])
     ms = device_ms(lambda: compact.stream_compact_cols(*args, **kw), 10)
-    dev_ms, dev_n = kernel_device_ms(
+    dev_ms, dev_n = (kernel_device_ms(
         lambda: compact.stream_compact_cols(*args, **kw), 10, "compact",
-        log)
+        log) if profile else (None, None))
     pms = device_ms(lambda: compact.stream_compact_cols_plain(*args, **kw), 10)
     cols, keep, kk = args
     # bytes the compaction needs: the mask, the words of the rows it keeps
@@ -1076,10 +1113,10 @@ def compare_k6(calls, log):
     log(f"K6 stream_compact cap={keep.shape[0]} columns={len(cols)} k={kk} "
         f"kept={kept} (in {100 * sectors:.1f}% of the 32-byte sectors): "
         f"exact={exact} max_abs={err:.3g}; kernel "
-        f"{ms:.4f} ms (profiler: {dev_ms:.4f} ms in {dev_n:g} launch per "
+        f"{ms:.4f} ms (profiler: {dev_ms} ms in {dev_n} launch per "
         f"call), plain {pms:.4f} ms, bound {b_ms:.4f} ms ({by})")
     fails = [] if exact else ["K6 stream_compact_cols is not bit-exact"]
-    if dev_n != 1:
+    if profile and dev_n != 1:
         fails.append(f"K6: the profiler saw {dev_n} launches per call")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
@@ -3636,6 +3673,156 @@ def scale_checks(out, launches, n_calls, log):
     return failures
 
 
+def _table(log, smi, name, rows, **extra):
+    """One stage table on a line of its own."""
+    log(json.dumps({"table": name, "card": smi, **extra, "rows": rows}))
+
+
+def dissect_phase(device, smi, log):
+    """log_tpu_torch/scripts' dissection and probe scripts, each run between
+    a reset and a read of the launch counts: bench_frame_dissect (the 3.24M
+    tree at 1920x1088, min_res 3: the flat_slice and block stage tables,
+    headline, cull, kernel2, prims, blocksize, demand), the init-stage step's
+    prefixes at 100k points, bench_kernel, the sort, gather and block-take
+    probes, backend_equivalence on config/synthetic and
+    check_sharded_fullscale at 2 gloo ranks (DISSECT_SHARDED_FRAMES frames
+    of the dissector's orbit). Every stage table is printed on its own line.
+    Fails where a stage chain's frame is not bit-equal to its function's,
+    the full prefix to fused_prepare_train_step, a timed call's demand
+    passed its budget, a path kernel never launched, a held call disagrees
+    with its plain version, or the sharded exchange overflowed. Returns
+    (json, launches by sub-phase, held errors, kernel rows, failures)."""
+    import torch
+
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.scripts import (backend_equivalence, bench_blockgather,
+                                       bench_frame_dissect, bench_gathercost,
+                                       bench_kernel, bench_sortcost,
+                                       bench_trainstep_dissect,
+                                       check_sharded_fullscale)
+
+    held = {}
+
+    def hold(label):
+        return recording(held.setdefault(label, {}), copy="cpu")
+
+    runs = (
+        ("frame", lambda: bench_frame_dissect.run(
+            DISSECT_FRAME_PHASES, reps=DISSECT_REPS, device=device,
+            hold=hold)),
+        ("trainstep", lambda: bench_trainstep_dissect.run(
+            reps=DISSECT_REPS, device=device, hold=hold)),
+        ("kernel", lambda: bench_kernel.run(device=device, hold=hold)),
+        ("sortcost", lambda: bench_sortcost.run(
+            sizes=DISSECT_SORT_SIZES, payloads=DISSECT_SORT_PAYLOADS,
+            reps=DISSECT_REPS, device=device)),
+        ("gathercost", lambda: bench_gathercost.run(reps=DISSECT_REPS,
+                                                    device=device)),
+        ("blockgather", lambda: bench_blockgather.run(reps=DISSECT_REPS,
+                                                      device=device)),
+        ("equivalence", lambda: backend_equivalence.run(
+            out=DISSECT_EQUIV_OUT, device=device)),
+        ("sharded", lambda: check_sharded_fullscale.run(
+            frames=DISSECT_SHARDED_FRAMES, world=2, device=device)),
+    )
+    out, launches, failures = {}, {}, []
+    for name, run in runs:
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        res, sec = timed(run)
+        launches[f"dissect_{name}"] = dict(kernels.LAUNCHES)
+        res["wall_s"] = sec
+        out[name] = res
+        log(f"dissect {name}: {sec:.2f} s; launches "
+            f"{launches[f'dissect_{name}']}")
+    for key, path in DISSECT_KERNELS.items():
+        ran = launches[key]
+        if min(ran[k] for k in path) < 1:
+            failures.append(f"{key}: a path kernel never launched: {ran}")
+
+    fr = out["frame"]
+    for frame in ("flat_slice", "blocks"):
+        t = fr[frame]
+        _table(log, smi, f"dissect {frame}", t["stages"] + [t["sum"]]
+               + t["phases"], residual=t.get("residual"),
+               max_pairs=t["max_pairs"], demand=t["demand"],
+               chain_equal=t["chain_equal"])
+        if not t["chain_equal"]:
+            failures.append(f"dissect {frame}: the stage chain's frame is not "
+                            f"bit-equal to the full function's")
+    _table(log, smi, "dissect block cull", fr["blocks"]["cull_stages"]
+           + [fr["blocks"]["cull_sum"]])
+    for res_key, t in fr["headline"].items():
+        _table(log, smi, f"dissect headline {res_key}", t["rows"],
+               **{k: v for k, v in t.items() if k != "rows"})
+    cull = fr["cull"]
+    _table(log, smi, "dissect cull", cull["stages"] + [
+        cull["expand_seg_broadcast"], cull["expand_take"]],
+        roots_kept=cull["roots_kept"], rows_expanded=cull["rows"],
+        branches_equal=cull["branches_equal_on_alive_rows"])
+    if not cull["branches_equal_on_alive_rows"]:
+        failures.append("dissect cull: the two expansion branches differ")
+    _table(log, smi, "dissect kernel2", [fr["kernel2"]["k5"],
+                                         fr["kernel2"]["tile_starts"]],
+           pairs=fr["kernel2"]["pairs"])
+    for probe in ("prims", "blocksize", "demand"):
+        _table(log, smi, f"dissect {probe}", fr[probe]["rows"])
+    ts_ = out["trainstep"]
+    _table(log, smi, "dissect trainstep", ts_["prefixes"],
+           itemized=ts_["itemized"], max_pairs=ts_["max_pairs"],
+           pairs_measured=ts_["pairs_measured"],
+           full_equals_step=ts_["full_equals_step"])
+    if not ts_["full_equals_step"]:
+        failures.append("dissect trainstep: the full prefix is not bit-equal "
+                        "to fused_prepare_train_step")
+    _table(log, smi, "dissect bench_kernel", out["kernel"]["rows"])
+    for probe in ("sortcost", "gathercost", "blockgather"):
+        _table(log, smi, f"dissect {probe}", out[probe]["rows"])
+    eq = out["equivalence"]
+    for backend, r in eq["runs"].items():
+        log(f"dissect equivalence {backend}: val PSNR {r['val_psnr']}, "
+            f"final-val {r['final_val']}, train {r['train_s']:.2f} s")
+        if not math.isfinite(r["final_val"]["psnr"]):
+            failures.append(f"dissect equivalence {backend}: final-val PSNR "
+                            f"not finite")
+    sh = out["sharded"]
+    for f in sh["frames"]:
+        log(f"dissect sharded cam {f['cam']}: cut {f['cut']}, pairs "
+            f"exchanged {f['pairs_exchanged']} (single card "
+            f"{f['single_card_demand']}), overflow {f['bucket_overflow']}, "
+            f"lens {f['lens']}, {f['wall_s']:.2f} s")
+    if sh["max_overflow"] or not sh["ranks_agree"]:
+        failures.append(f"dissect sharded: overflow {sh['max_overflow']}, "
+                        f"ranks agree {sh['ranks_agree']}")
+
+    want = {"dissect flat_slice", "dissect blocks", "dissect kernel2",
+            "dissect compact_k6", "dissect trainstep"}
+    if want - set(held) or not any(k.startswith("bench_kernel")
+                                   for k in held):
+        failures.append(f"dissect: no calls recorded for "
+                        f"{sorted(want - set(held))} or bench_kernel")
+    errs, rows = {}, {}
+    for label in list(held):
+        calls = _copied(held.pop(label), device)
+        if "stream_compact" in calls:
+            # no profiler count here: on this call (8 columns) the profiler
+            # keeps the records of half the launches in every window, while
+            # the CUDA events time every launch
+            row, f = compare_k6(calls, log, profile=False)
+            rows.setdefault("stream_compact", []).append(
+                dict(row, call=label))
+            errs["stream_compact"] = max(errs.get("stream_compact", 0.0),
+                                         row["max_abs_err"])
+            failures += f
+        e, f = hold_calls(calls, label, log, rows)
+        failures += f
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        del calls
+        torch.cuda.empty_cache()
+    return out, launches, errs, rows, failures
+
+
 def write_foreground_masks(root, log):
     """masks/<view>.png beside images/<view>.png: 255 where a pixel is not
     the scene's white background (every channel under CLI_MASK_WHITE)."""
@@ -4443,11 +4630,22 @@ def main() -> int:
             rows[name]["modes"] += kernel_rows
         else:
             rows[name]["scale_calls"] = kernel_rows
+    torch.cuda.empty_cache()
+    (dk_json, dk_launches, held["dissect"], dk_rows, dkfail), dk_s = timed(
+        lambda: dissect_phase(device, smi, log))
+    failures += dkfail
+    dk_json["phase_s"] = dk_s
+    for name, kernel_rows in dk_rows.items():
+        if name == "rasterize_fwd":
+            rows[name]["modes"] += kernel_rows
+        else:
+            rows[name]["dissect_calls"] = kernel_rows
     (cm_json, cm_launches, cm_calls, cmfail), cm_s = timed(
         lambda: cli_mask_phase(log))
     failures += cmfail
     cm_json["phase_s"]["total"] = cm_s
-    log(f"phase wall times: scale {sc_s:.2f} s, cli_mask {cm_s:.2f} s")
+    log(f"phase wall times: scale {sc_s:.2f} s, dissect {dk_s:.2f} s, "
+        f"cli_mask {cm_s:.2f} s")
 
     log(json.dumps({
         "slice": slice_json,
@@ -4462,7 +4660,7 @@ def main() -> int:
         "sharded_step": ss_json, "sharded_render": sr_json,
         "cli_parallel": cp_json, "viewer": viewer_json,
         "vanilla": vanilla_json, "viewer_cli": vc_json, "tools": tools_json,
-        "scale": sc_json, "cli_mask": cm_json,
+        "scale": sc_json, "dissect": dk_json, "cli_mask": cm_json,
     }))
     kernels_json = []
     runs = dict(serve_runs, train=t_launches, growth=g_launches,
@@ -4470,7 +4668,7 @@ def main() -> int:
                 grown_frame=gf_launches, **cli_launches, **cd_launches,
                 sharded_step=ss_launches, **sr_launches, **cp_launches,
                 viewer=v_launches, **van_launches, viewer_cli=vc_launches,
-                **sc_launches, **cm_launches)
+                **sc_launches, **dk_launches, **cm_launches)
     # main-path calls per phase: frames, training steps, or renders
     n_calls = dict({phase: FRAMES for phase in serve_runs},
                    train=TRAIN_STEPS, growth=GROWTH_STEPS,

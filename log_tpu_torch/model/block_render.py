@@ -174,96 +174,137 @@ def _take_blocks(x, blk_ids, B: int):
     return torch.cat([x, pad], dim=-2)[..., blk_ids, :]
 
 
+def block_stages(cols, meta: dict, cam: dict, min_resolution_pixel,
+                 current_depth, background, image_height: int,
+                 image_width: int, k_blocks: int, k_visible: int,
+                 max_pairs: int, w_full=None, mode: str = "antialias",
+                 use_filter: bool = False):
+    """The block-pruned frame as named stages over one state dict;
+    `run_stages` of them is `render_blocks`, and the frame's dissection
+    (scripts/bench_frame_dissect.py) times them one by one:
+
+      select: block eligibility (and the cached cull's any-row test), the
+        eligible block ids to the front -> "blk_ids", "counts" (n_elig);
+      take: the k_blocks blocks of the prepack -> "g" (N_COLS, rows);
+      project: unpack, the own splat and the cut radius from one cov2d,
+        the parents' cut radius -> "splats", "rgb", "radius2d", ...;
+      cut: the flat cut on the flag columns (and the cached cull's rows)
+        -> "keep", "counts" (leaf, node, n_elig);
+      compact, check, pairs, kernel: `packed_frame_stages` (no slice cull).
+    """
+    from .train_step import packed_frame_stages
+
+    S = cols.shape[2]
+    B = cols.shape[1]
+    n_rows = k_blocks * S
+
+    def select_stage(s):
+        eligible = block_eligibility(meta, cam, min_resolution_pixel)
+        if w_full is not None:
+            # a block whose rows were all weight-culled cannot contribute
+            eligible = eligible & w_full.reshape(B, S).any(dim=1)
+        s["blk_ids"], n_elig = select_blocks(eligible, k_blocks)
+        s["counts"] = n_elig[None]
+
+    def take_stage(s):
+        s["g"] = _take_blocks(cols, s["blk_ids"], B).reshape(N_COLS, n_rows)
+
+    def project_stage(s):
+        g = s["g"]
+
+        def f32(c):
+            return g[c].view(torch.float32)
+
+        x, y, z = f32(C_X), f32(C_Y), f32(C_Z)
+        sxx, sxy = unpack2_bf16(g[C_SXX_SXY])
+        sxz, syy = unpack2_bf16(g[C_SXZ_SYY])
+        syz, szz = unpack2_bf16(g[C_SYZ_SZZ])
+        op, col_r = unpack2_bf16(g[C_OP_R])
+        col_g, col_b = unpack2_bf16(g[C_G_B])
+        pxx_, pyy_ = unpack2_bf16(g[C_PX_PY])
+        pz_, pcxx = unpack2_bf16(g[C_PZ_PXX])
+        pcxy, pcxz = unpack2_bf16(g[C_PXY_PXZ])
+        pcyy, pcyz = unpack2_bf16(g[C_PYY_PYZ])
+        pczz, _ = unpack2_bf16(g[C_PZZ])
+        alive = (g[C_FLAGS] & FLAG_ALIVE) != 0
+        # projection: the own splat and the cut radius from one cov2d
+        wv, fx, fy = cam["world_view"], cam["focal_x"], cam["focal_y"]
+        tanx, tany = cam["tan_fovx"], cam["tan_fovy"]
+        tx, ty, tz = gm.transform_point_c(x, y, z, wv)
+        ndc_x, ndc_y, ndc_z, _ = gm.project_ndc_c(x, y, z, cam["full_proj"])
+        cxx, cxy, cyy = gm.ewa_cov2d_c((sxx, sxy, sxz, syy, syz, szz), tx, ty,
+                                       tz, wv, fx, fy, tanx, tany)
+        s["radius2d"] = gm.cut_radius(
+            cxx, cxy, cyy,
+            gm.frustum_flag_c(ndc_x, ndc_y, ndc_z, padding=0.3))
+        icxx, icxy, icyy, det, radius, op_eff = screen_splat(
+            cxx, cxy, cyy, op, mode, use_filter, tight_radius=True)
+        valid = (tz > NEAR_Z) & (det > 0.0) & alive
+        s["splats"] = SplatCols(
+            px=gm.ndc_to_pix(ndc_x, image_width),
+            py=gm.ndc_to_pix(ndc_y, image_height), cxx=icxx, cxy=icxy,
+            cyy=icyy, opacity=torch.where(valid, op_eff, 0.0), depth=tz,
+            radius=torch.where(valid, radius, 0.0), valid=valid,
+        )
+        s["rgb"] = (col_r, col_g, col_b)
+        # the parent's cut radius from the cached parent attributes (roots
+        # carry themselves)
+        s["radius2d_parent"] = gm.compute_radius2d_c(
+            pxx_, pyy_, pz_, (pcxx, pcxy, pcxz, pcyy, pcyz, pczz), wv,
+            cam["full_proj"], fx, fy, tanx, tany)
+        s["alive"] = alive
+
+    def cut_stage(s):
+        g, alive = s["g"], s["alive"]
+        rx_, ry_ = unpack2_bf16(g[C_RX_RY])
+        rz_, _ = unpack2_bf16(g[C_RZ])
+        flags = g[C_FLAGS]
+        is_leaf = (flags & FLAG_LEAF) != 0
+        is_root = (flags & FLAG_ROOT) != 0
+        leaf_opt = (flags & FLAG_LEAF_OPT) != 0
+        rnx, rny, rnz, _ = gm.project_ndc_c(rx_, ry_, rz_, cam["full_proj"])
+        root_frus = gm.frustum_flag_c(rnx, rny, rnz, padding=0.5) & alive
+        keep = flat_cut_pre(torch.where(is_root, -1, 0),
+                            torch.where(is_leaf, -1, 0), flags & 255,
+                            root_frus, s["radius2d"], s["radius2d_parent"],
+                            alive, min_resolution_pixel, current_depth)
+        if w_full is not None:
+            wb = _take_blocks(w_full.reshape(B, S), s["blk_ids"],
+                              B).reshape(n_rows)
+            keep = keep & wb
+        s["keep"] = keep
+        n_elig = s["counts"].to(torch.int64)
+        s["counts"] = torch.cat([(keep & leaf_opt).sum()[None],
+                                 (keep & ~leaf_opt).sum()[None], n_elig])
+
+    return [("select", select_stage), ("take", take_stage),
+            ("project", project_stage), ("cut", cut_stage)] + \
+        packed_frame_stages(k_visible, background, image_height, image_width,
+                            max_pairs)
+
+
 @torch.no_grad()
 def render_blocks(cols, meta: dict, cam: dict, min_resolution_pixel,
                   current_depth, background, image_height: int,
                   image_width: int, k_blocks: int, k_visible: int,
                   max_pairs: int, w_full=None, mode: str = "antialias",
                   use_filter: bool = False):
-    """Block-pruned inference frame (the packed pipeline only). w_full: the
-    cached capacity-axis weight-cull mask (`fused_root_cull`) or None.
-    Returns (render (3,H,W), alpha (H,W), counts (4,): leaf, node, pair
-    demand, eligible blocks). A budget of 2^24 pairs or more raises: the
-    block frame is held to the packed route, whose f32 run rows are exact
-    below it (the flat_slice frame renders such a budget whole)."""
-    from .train_step import _render_packed_splats
+    """Block-pruned inference frame (the packed pipeline only): the stages
+    of `block_stages`. w_full: the cached capacity-axis weight-cull mask
+    (`fused_root_cull`) or None. Returns (render (3,H,W), alpha (H,W),
+    counts (4,): leaf, node, pair demand, eligible blocks). A budget of
+    2^24 pairs or more raises: the block frame is held to the packed
+    route, whose f32 run rows are exact below it (the flat_slice frame
+    renders such a budget whole)."""
+    from .train_step import run_stages
 
     if max_pairs >= PACKED_ID_LIMIT:
         raise ValueError(
             f"render_blocks: a pair budget of {max_pairs} reaches the packed "
             f"route's limit of {PACKED_ID_LIMIT}; render this frame through "
             f"fused_prepare_render (flat_slice)")
-    S = cols.shape[2]
-    B = cols.shape[1]
-    n_rows = k_blocks * S
-    eligible = block_eligibility(meta, cam, min_resolution_pixel)
-    if w_full is not None:
-        # a block whose rows were all weight-culled cannot contribute
-        eligible = eligible & w_full.reshape(B, S).any(dim=1)
-    blk_ids, n_elig = select_blocks(eligible, k_blocks)
-    g = _take_blocks(cols, blk_ids, B).reshape(N_COLS, n_rows)
-
-    def f32(c):
-        return g[c].view(torch.float32)
-
-    x, y, z = f32(C_X), f32(C_Y), f32(C_Z)
-    sxx, sxy = unpack2_bf16(g[C_SXX_SXY])
-    sxz, syy = unpack2_bf16(g[C_SXZ_SYY])
-    syz, szz = unpack2_bf16(g[C_SYZ_SZZ])
-    op, col_r = unpack2_bf16(g[C_OP_R])
-    col_g, col_b = unpack2_bf16(g[C_G_B])
-    pxx_, pyy_ = unpack2_bf16(g[C_PX_PY])
-    pz_, pcxx = unpack2_bf16(g[C_PZ_PXX])
-    pcxy, pcxz = unpack2_bf16(g[C_PXY_PXZ])
-    pcyy, pcyz = unpack2_bf16(g[C_PYY_PYZ])
-    pczz, _ = unpack2_bf16(g[C_PZZ])
-    rx_, ry_ = unpack2_bf16(g[C_RX_RY])
-    rz_, _ = unpack2_bf16(g[C_RZ])
-    flags = g[C_FLAGS]
-    depth_lvl = flags & 255
-    is_leaf = (flags & FLAG_LEAF) != 0
-    is_root = (flags & FLAG_ROOT) != 0
-    leaf_opt = (flags & FLAG_LEAF_OPT) != 0
-    alive = (flags & FLAG_ALIVE) != 0
-
-    # projection: the own splat and the cut radius from one cov2d
-    wv, fx, fy = cam["world_view"], cam["focal_x"], cam["focal_y"]
-    tanx, tany = cam["tan_fovx"], cam["tan_fovy"]
-    tx, ty, tz = gm.transform_point_c(x, y, z, wv)
-    ndc_x, ndc_y, ndc_z, _ = gm.project_ndc_c(x, y, z, cam["full_proj"])
-    cxx, cxy, cyy = gm.ewa_cov2d_c((sxx, sxy, sxz, syy, syz, szz), tx, ty,
-                                   tz, wv, fx, fy, tanx, tany)
-    radius2d = gm.cut_radius(
-        cxx, cxy, cyy, gm.frustum_flag_c(ndc_x, ndc_y, ndc_z, padding=0.3))
-    icxx, icxy, icyy, det, radius, op_eff = screen_splat(
-        cxx, cxy, cyy, op, mode, use_filter, tight_radius=True)
-    valid = (tz > NEAR_Z) & (det > 0.0) & alive
-    splats = SplatCols(
-        px=gm.ndc_to_pix(ndc_x, image_width),
-        py=gm.ndc_to_pix(ndc_y, image_height), cxx=icxx, cxy=icxy, cyy=icyy,
-        opacity=torch.where(valid, op_eff, 0.0), depth=tz,
-        radius=torch.where(valid, radius, 0.0), valid=valid,
-    )
-    # the parent's cut radius from the cached parent attributes (roots
-    # carry themselves)
-    radius2d_parent = gm.compute_radius2d_c(
-        pxx_, pyy_, pz_, (pcxx, pcxy, pcxz, pcyy, pcyz, pczz), wv,
-        cam["full_proj"], fx, fy, tanx, tany)
-
-    # the flat cut (flat_cut_pre on the flag columns)
-    rnx, rny, rnz, _ = gm.project_ndc_c(rx_, ry_, rz_, cam["full_proj"])
-    root_frus = gm.frustum_flag_c(rnx, rny, rnz, padding=0.5) & alive
-    keep = flat_cut_pre(torch.where(is_root, -1, 0),
-                        torch.where(is_leaf, -1, 0), depth_lvl, root_frus,
-                        radius2d, radius2d_parent, alive,
-                        min_resolution_pixel, current_depth)
-    if w_full is not None:
-        wb = _take_blocks(w_full.reshape(B, S), blk_ids, B).reshape(n_rows)
-        keep = keep & wb
-    counts2 = torch.stack([(keep & leaf_opt).sum(), (keep & ~leaf_opt).sum()])
-    render, alpha, pair_total = _render_packed_splats(
-        splats, (col_r, col_g, col_b), keep, k_visible, background,
-        image_height, image_width, max_pairs)
-    counts = torch.cat([counts2, pair_total[None].to(counts2.dtype),
-                        n_elig[None].to(counts2.dtype)])
-    return render, alpha, counts
+    s = run_stages(block_stages(
+        cols, meta, cam, min_resolution_pixel, current_depth, background,
+        image_height, image_width, k_blocks, k_visible, max_pairs, w_full,
+        mode, use_filter))
+    return s["render"], s["alpha"], s["counts"]

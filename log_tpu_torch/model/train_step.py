@@ -240,19 +240,11 @@ def _use_packed_pairs() -> bool:
 
 
 def _render_tiled_cols(splat_cols, colors_cols, background, image_height: int,
-                       image_width: int, max_pairs: int, prefix_mask,
-                       pack_pairs=None):
-    """Column-native inference render, no stats. Packed (default): the
-    six-payload pair sort, K4 and K5 (`render_pairs_packed`); otherwise the
-    full-precision pair rows and K1. LOG_TPU_PACK_PAIRS=0 selects the
-    latter when pack_pairs is None. Returns (render, alpha, pair_total)."""
+                       image_width: int, max_pairs: int, prefix_mask):
+    """Column-native inference render at full precision, no stats: the
+    pair rows and K1 (the packed route is `packed_frame_stages`). Returns
+    (render, alpha, pair_total)."""
     H, W = image_height, image_width
-    if pack_pairs is None:
-        pack_pairs = _use_packed_pairs()
-    if pack_pairs:
-        color, tfinal, total = rt.render_pairs_packed(
-            splat_cols, colors_cols, background, H, W, max_pairs, prefix_mask)
-        return color[:, :H, :W], 1.0 - tfinal[:H, :W], total
     pairs = rt.build_pairs(splat_cols, colors_cols, H, W, max_pairs,
                            runs_tail_only=True, active_prefix=prefix_mask)
     color, tfinal, *_ = rt.rasterize_forward(
@@ -261,41 +253,207 @@ def _render_tiled_cols(splat_cols, colors_cols, background, image_height: int,
     return color[:, :H, :W], 1.0 - tfinal[:H, :W], pairs["total"]
 
 
-def _render_packed_splats(splats, rgb, keep, k_visible: int, background,
-                          image_height: int, image_width: int,
-                          max_pairs: int, root_id=None, cull=None):
-    """The packed frame's tail (flat_slice and block-pruned): bf16-pack the
-    splat columns of `splats` (SplatCols) and `rgb` (3 columns), with the
-    radius inflated by 2^-7 first so that rounding can only grow a tile
-    rect; compact them by keep (`_compact_flat_cols`); with root_id given,
-    cull(root_id of the slice, prefix mask) gives the valid lanes; unpack
-    and render through K3p, K4 and K5. Returns (render, alpha,
-    pair_total)."""
-    sort_cols = {
-        "px": splats.px, "py": splats.py, "depth": splats.depth,
-        "p1": rt.pack2_bf16(splats.cxx, splats.cxy),
-        "p2": rt.pack2_bf16(splats.cyy, splats.opacity),
-        "p3": rt.pack2_bf16(rgb[0], rgb[1]),
-        "p4": rt.pack2_bf16(rgb[2], splats.radius * (1.0 + 2.0 ** -7)),
-    }
-    if root_id is not None:
-        sort_cols["root_id"] = root_id
-    cols_s, _, lane_prefix = _compact_flat_cols(sort_cols, keep, k_visible)
-    lane_valid = (lane_prefix if root_id is None
-                  else cull(cols_s["root_id"], lane_prefix))
-    cxx, cxy = rt.unpack2_bf16(cols_s["p1"])
-    cyy, op_sl = rt.unpack2_bf16(cols_s["p2"])
-    r_sl, g_sl = rt.unpack2_bf16(cols_s["p3"])
-    b_sl, rad_sl = rt.unpack2_bf16(cols_s["p4"])
-    valid = lane_valid & (rad_sl > 0)
-    splat_cols = SplatCols(
-        px=cols_s["px"], py=cols_s["py"], cxx=cxx, cxy=cxy, cyy=cyy,
-        opacity=torch.where(valid, op_sl, 0.0), depth=cols_s["depth"],
-        radius=torch.where(valid, rad_sl, 0.0), valid=valid,
+def run_stages(stages, state=None) -> dict:
+    """Run named stages [(name, fn(state))] in order on one state dict."""
+    state = {} if state is None else state
+    for _, fn in stages:
+        fn(state)
+    return state
+
+
+def packed_frame_stages(k_visible: int, background, image_height: int,
+                        image_width: int, max_pairs: int, root_id=None,
+                        cull=None):
+    """The packed frame's tail (flat_slice and block-pruned) as named
+    stages over a state dict holding the capacity-side splat columns
+    ("splats": SplatCols, "rgb": 3 columns), the cut ("keep") and its
+    counts ("counts"):
+
+      compact: bf16-pack the columns (the radius inflated by 2^-7 first, so
+        that rounding can only grow a tile rect) and compact them by keep
+        (`_compact_flat_cols`) -> "cols", "lane_prefix";
+      check: with root_id given, cull(state, root ids of the slice, prefix
+        mask) gives the valid lanes (the slice-axis weight cull), else
+        the prefix -> "lane_valid";
+      pairs: unpack; expansion, the pair sort and the record pack
+        (`rt.packed_pairs`: K4, K3p, K4) -> "pairs"; the unclamped pair
+        demand joins "counts" and is "pair_total";
+      kernel: K5 -> "render" (3, H, W), "alpha" (H, W).
+    """
+    H, W = image_height, image_width
+
+    def compact_stage(s):
+        splats, rgb = s["splats"], s["rgb"]
+        sort_cols = {
+            "px": splats.px, "py": splats.py, "depth": splats.depth,
+            "p1": rt.pack2_bf16(splats.cxx, splats.cxy),
+            "p2": rt.pack2_bf16(splats.cyy, splats.opacity),
+            "p3": rt.pack2_bf16(rgb[0], rgb[1]),
+            "p4": rt.pack2_bf16(rgb[2], splats.radius * (1.0 + 2.0 ** -7)),
+        }
+        if root_id is not None:
+            sort_cols["root_id"] = root_id
+        s["cols"], _, s["lane_prefix"] = _compact_flat_cols(
+            sort_cols, s["keep"], k_visible)
+
+    def check_stage(s):
+        s["lane_valid"] = (s["lane_prefix"] if root_id is None
+                           else cull(s, s["cols"]["root_id"],
+                                     s["lane_prefix"]))
+
+    def pairs_stage(s):
+        cols_s, lane_valid = s["cols"], s["lane_valid"]
+        cxx, cxy = rt.unpack2_bf16(cols_s["p1"])
+        cyy, op_sl = rt.unpack2_bf16(cols_s["p2"])
+        r_sl, g_sl = rt.unpack2_bf16(cols_s["p3"])
+        b_sl, rad_sl = rt.unpack2_bf16(cols_s["p4"])
+        valid = lane_valid & (rad_sl > 0)
+        splat_cols = SplatCols(
+            px=cols_s["px"], py=cols_s["py"], cxx=cxx, cxy=cxy, cyy=cyy,
+            opacity=torch.where(valid, op_sl, 0.0), depth=cols_s["depth"],
+            radius=torch.where(valid, rad_sl, 0.0), valid=valid,
+        )
+        s["pairs"] = rt.packed_pairs(splat_cols, (r_sl, g_sl, b_sl), H, W,
+                                     max_pairs, s["lane_prefix"])
+        total = s["pairs"][-1]
+        # counts[2]: the frame's unclamped pair demand, which sizes the
+        # next frames' pair budget
+        s["counts"] = torch.cat([s["counts"][:2],
+                                 total[None].to(s["counts"].dtype),
+                                 s["counts"][2:]])
+        s["pair_total"] = total
+
+    def kernel_stage(s):
+        pair_data, start, count, tiles_x, tiles_y, _ = s["pairs"]
+        color, tfinal = rt.rasterize_forward_packed(
+            pair_data, start, count, background, tiles_x, tiles_y)
+        s["render"], s["alpha"] = color[:, :H, :W], 1.0 - tfinal[:H, :W]
+
+    return [("compact", compact_stage), ("check", check_stage),
+            ("pairs", pairs_stage), ("kernel", kernel_stage)]
+
+
+def _flat_slice_geometry(params: dict, tree_arrays: dict, cam: dict,
+                         n_alive):
+    """What every flat_slice route starts from: the alive mask, the cached
+    root centers' projection and frustum flag, and the parents' cut
+    radius."""
+    cap = params["xyz"].shape[0]
+    alive = torch.arange(cap, device=params["xyz"].device) < n_alive
+    rx = tree_arrays["root_xyz"]
+    rpx, rpy, rpz, _ = gm.project_ndc_c(rx[:, 0], rx[:, 1], rx[:, 2],
+                                        cam["full_proj"])
+    radius2d_parent = gm.compute_radius2d(
+        tree_arrays["parent_xyz"], torch.exp(tree_arrays["parent_scaling"]),
+        _normalize_rows(tree_arrays["parent_rotation"]), *_cam_args(cam),
     )
-    return _render_tiled_cols(splat_cols, (r_sl, g_sl, b_sl), background,
-                              image_height, image_width, max_pairs,
-                              lane_prefix, pack_pairs=True)
+    return {"alive": alive, "rpx": rpx, "rpy": rpy, "rpz": rpz,
+            "root_frus": gm.frustum_flag_c(rpx, rpy, rpz, padding=0.5) & alive,
+            "radius2d_parent": radius2d_parent}
+
+
+def _cam_args(cam: dict):
+    return (cam["world_view"], cam["full_proj"], cam["focal_x"],
+            cam["focal_y"], cam["tan_fovx"], cam["tan_fovy"])
+
+
+def _flat_slice_cut(geo: dict, tree_arrays: dict, radius2d, is_leaf_opt,
+                    min_resolution_pixel, current_depth, w_full):
+    """The gather-free pre-cut (`flat_cut_pre`), with the capacity-axis
+    weight cull w_full folded in where given. Returns (keep, counts (2,):
+    kept leaf and node rows)."""
+    keep = flat_cut_pre(
+        tree_arrays["index_parent"], tree_arrays["node_index"],
+        tree_arrays["depth"], geo["root_frus"], radius2d,
+        geo["radius2d_parent"], geo["alive"], min_resolution_pixel,
+        current_depth,
+    )
+    if w_full is not None:
+        keep = keep & w_full
+    counts = torch.stack([(keep & is_leaf_opt).sum(),
+                          (keep & ~is_leaf_opt).sum()])
+    return keep, counts
+
+
+def _slice_root_cull(params: dict, tree_arrays: dict, geo: dict, cam: dict,
+                     lane_prefix, root_id_sl, opacity_r, scaling_r,
+                     rotation_r, R: int, image_height: int, image_width: int,
+                     mode: str, prep_backend: str, prep_max_pairs: int,
+                     check_scale: int):
+    """The slice-axis weight cull: the root weight render over the first R
+    rows, then a k-sized gather by each lane's root."""
+    cand = (gm.frustum_flag_c(geo["rpx"][:R], geo["rpy"][:R], geo["rpz"][:R],
+                              padding=0.5)
+            & (tree_arrays["index_parent"][:R] == -1) & geo["alive"][:R])
+    weight_ok = _check_root_weights(
+        params["xyz"][:R], opacity_r, scaling_r, rotation_r, cand, cam,
+        image_height, image_width, mode, prep_backend, prep_max_pairs,
+        check_scale,
+    )
+    rid = torch.clamp(root_id_sl.to(torch.int64), 0, R - 1)
+    return lane_prefix & weight_ok[rid]
+
+
+def flat_slice_stages(params: dict, tree_arrays: dict, cam: dict, n_alive,
+                      is_leaf_opt, min_resolution_pixel, current_depth,
+                      background, image_height: int, image_width: int,
+                      k_visible: int, sh_degree: int, mode: str,
+                      max_pairs: int, check_scale: int, n_roots: int,
+                      prep_backend: str, prep_max_pairs: int,
+                      use_filter: bool, per_frame_cull: bool, w_full):
+    """The packed flat_slice frame (the serving default) as named stages
+    over one state dict; `run_stages` of them is the frame, and the
+    frame's dissection (scripts/bench_frame_dissect.py) times them one by
+    one:
+
+      cut: the capacity axis projected once (the cut radius and the render
+        splats from one cov2d) and the flat cut -> "splats", "keep",
+        "counts";
+      act: the colors, SH evaluated on the capacity axis -> "rgb";
+      compact, check, pairs, kernel: `packed_frame_stages`, the check the
+        per-frame slice-axis weight cull where per_frame_cull.
+
+    The state ends with "render", "alpha", "counts" (kept leaf, node, pair
+    demand) and "pair_total".
+    """
+    cap = params["xyz"].shape[0]
+    R = n_roots if 0 < n_roots <= cap else cap
+    xyz, q = params["xyz"], params["rotation"]
+
+    def cut_stage(s):
+        geo = _flat_slice_geometry(params, tree_arrays, cam, n_alive)
+        op_full = torch.sigmoid(params["opacity"][:, 0])
+        s_full = torch.exp(params["scaling"])
+        splat_full, radius2d = project_gaussians_cols(
+            xyz[:, 0], xyz[:, 1], xyz[:, 2], s_full[:, 0], s_full[:, 1],
+            s_full[:, 2], q[:, 0], q[:, 1], q[:, 2], q[:, 3], op_full,
+            *_cam_args(cam), image_height, image_width, mode=mode,
+            use_filter=use_filter, active_mask=geo["alive"],
+            tight_radius=True, with_cut_radius=True,
+        )
+        s["keep"], s["counts"] = _flat_slice_cut(
+            geo, tree_arrays, radius2d, is_leaf_opt, min_resolution_pixel,
+            current_depth, w_full)
+        s.update(geo=geo, op_full=op_full, s_full=s_full, splats=splat_full)
+
+    def act_stage(s):
+        col = sh_to_rgb(params["colors"])
+        if sh_degree > 0 and "shs" in params:
+            dirs = _normalize_rows(xyz - cam["camera_center"][None])
+            col = col + eval_sh(dirs, params["shs"], degree=sh_degree)
+        s["rgb"] = col.unbind(1)
+
+    def cull(s, root_id_sl, lane_prefix):
+        return _slice_root_cull(
+            params, tree_arrays, s["geo"], cam, lane_prefix, root_id_sl,
+            s["op_full"][:R], s["s_full"][:R], _normalize_rows(q[:R]), R,
+            image_height, image_width, mode, prep_backend, prep_max_pairs,
+            check_scale)
+
+    return [("cut", cut_stage), ("act", act_stage)] + packed_frame_stages(
+        k_visible, background, image_height, image_width, max_pairs,
+        root_id=tree_arrays["root_id"] if per_frame_cull else None,
+        cull=cull)
 
 
 def _flat_slice_frame(params: dict, tree_arrays: dict, cam: dict, n_alive,
@@ -311,98 +469,44 @@ def _flat_slice_frame(params: dict, tree_arrays: dict, cam: dict, n_alive,
     compaction (w_full) or applied after it on the slice axis.
 
     Returns ("frame", (render, alpha, counts, pair_total)) from the packed
-    and the column paths, or ("slices", (slices, lane_valid, lane_prefix,
-    counts)) for the shared slice render of fused_prepare_render.
+    route (`flat_slice_stages`) and the column path, or ("slices", (slices,
+    lane_valid, lane_prefix, counts)) for the shared slice render of
+    fused_prepare_render.
     """
     cap = params["xyz"].shape[0]
-    dev = params["xyz"].device
-    alive = torch.arange(cap, device=dev) < n_alive
-    rx = tree_arrays["root_xyz"]
-    rpx, rpy, rpz, _ = gm.project_ndc_c(rx[:, 0], rx[:, 1], rx[:, 2],
-                                        cam["full_proj"])
-    root_frus = gm.frustum_flag_c(rpx, rpy, rpz, padding=0.5) & alive
-    cam_args = (cam["world_view"], cam["full_proj"], cam["focal_x"],
-                cam["focal_y"], cam["tan_fovx"], cam["tan_fovy"])
-    radius2d_parent = gm.compute_radius2d(
-        tree_arrays["parent_xyz"], torch.exp(tree_arrays["parent_scaling"]),
-        _normalize_rows(tree_arrays["parent_rotation"]), *cam_args,
-    )
     R = n_roots if 0 < n_roots <= cap else cap
     per_frame_cull = check_cull and w_full is None
-
-    def cut(radius2d):
-        keep = flat_cut_pre(
-            tree_arrays["index_parent"], tree_arrays["node_index"],
-            tree_arrays["depth"], root_frus, radius2d, radius2d_parent, alive,
-            min_resolution_pixel, current_depth,
-        )
-        if w_full is not None:
-            keep = keep & w_full
-        counts = torch.stack([(keep & is_leaf_opt).sum(),
-                              (keep & ~is_leaf_opt).sum()])
-        return keep, counts
-
-    def culled(lane_prefix, root_id_sl, opacity_r, scaling_r, rotation_r):
-        """The slice-axis weight cull: root weight render, then a k-sized
-        gather by each lane's root."""
-        if not per_frame_cull:
-            return lane_prefix
-        cand = (gm.frustum_flag_c(rpx[:R], rpy[:R], rpz[:R], padding=0.5)
-                & (tree_arrays["index_parent"][:R] == -1) & alive[:R])
-        weight_ok = _check_root_weights(
-            params["xyz"][:R], opacity_r, scaling_r, rotation_r, cand, cam,
-            image_height, image_width, mode, prep_backend, prep_max_pairs,
-            check_scale,
-        )
-        rid = torch.clamp(root_id_sl.to(torch.int64), 0, R - 1)
-        return lane_prefix & weight_ok[rid]
-
     use_cols = backend == "tiled"
     packed = pack_pairs if pack_pairs is not None else _use_packed_pairs()
     if use_cols and packed:
-        # project the whole capacity axis once (the cut radius and the
-        # render splats from one cov2d), evaluate SH there, then pack,
-        # compact and render the splat columns
-        op_full = torch.sigmoid(params["opacity"][:, 0])
-        xyz, s_full, q = (params["xyz"], torch.exp(params["scaling"]),
-                          params["rotation"])
-        splat_full, radius2d = project_gaussians_cols(
-            xyz[:, 0], xyz[:, 1], xyz[:, 2], s_full[:, 0], s_full[:, 1],
-            s_full[:, 2], q[:, 0], q[:, 1], q[:, 2], q[:, 3], op_full,
-            *cam_args, image_height, image_width, mode=mode,
-            use_filter=use_filter, active_mask=alive, tight_radius=True,
-            with_cut_radius=True,
-        )
-        keep, counts = cut(radius2d)
-        col = sh_to_rgb(params["colors"])
-        if sh_degree > 0 and "shs" in params:
-            dirs = _normalize_rows(xyz - cam["camera_center"][None])
-            col = col + eval_sh(dirs, params["shs"], degree=sh_degree)
-        rot_r = _normalize_rows(q[:R])
-        render, alpha, pair_total = _render_packed_splats(
-            splat_full, col.unbind(1), keep, k_visible, background,
-            image_height, image_width, max_pairs,
-            root_id=tree_arrays["root_id"] if per_frame_cull else None,
-            cull=lambda rid, prefix: culled(prefix, rid, op_full[:R],
-                                            s_full[:R], rot_r),
-        )
-        # counts[2]: the frame's unclamped pair demand, which sizes the
-        # next frames' pair budget
-        return "frame", (render, alpha, torch.cat([counts, pair_total[None]]),
-                         pair_total)
+        s = run_stages(flat_slice_stages(
+            params, tree_arrays, cam, n_alive, is_leaf_opt,
+            min_resolution_pixel, current_depth, background, image_height,
+            image_width, k_visible, sh_degree, mode, max_pairs, check_scale,
+            n_roots, prep_backend, prep_max_pairs, use_filter,
+            per_frame_cull, w_full))
+        return "frame", (s["render"], s["alpha"], s["counts"],
+                         s["pair_total"])
 
+    geo = _flat_slice_geometry(params, tree_arrays, cam, n_alive)
     scaling_full = torch.exp(params["scaling"])
     rotation_full = _normalize_rows(params["rotation"])
     radius2d = gm.compute_radius2d(params["xyz"], scaling_full, rotation_full,
-                                   *cam_args)
-    keep, counts = cut(radius2d)
+                                   *_cam_args(cam))
+    keep, counts = _flat_slice_cut(geo, tree_arrays, radius2d, is_leaf_opt,
+                                   min_resolution_pixel, current_depth,
+                                   w_full)
     cols_in = {kk: params[kk] for kk in need}
     cols_in["root_id"] = tree_arrays["root_id"][:, None]
     slices, _, lane_prefix = _compact_slices_gather(cols_in, keep, k_visible)
     root_id_sl = slices.pop("root_id")[:, 0]
-    lane_valid = culled(lane_prefix, root_id_sl,
-                        torch.sigmoid(params["opacity"][:R, 0]),
-                        scaling_full[:R], rotation_full[:R])
+    lane_valid = lane_prefix
+    if per_frame_cull:
+        lane_valid = _slice_root_cull(
+            params, tree_arrays, geo, cam, lane_prefix, root_id_sl,
+            torch.sigmoid(params["opacity"][:R, 0]), scaling_full[:R],
+            rotation_full[:R], R, image_height, image_width, mode,
+            prep_backend, prep_max_pairs, check_scale)
     if not (use_cols and "shs" not in need):
         return "slices", (slices, lane_valid, lane_prefix, counts)
     # the column path at full precision (pack_pairs=False)
@@ -411,17 +515,30 @@ def _flat_slice_frame(params: dict, tree_arrays: dict, cam: dict, n_alive,
     qw, qx, qy, qz = slices["rotation"].unbind(1)
     splat_cols = project_gaussians_cols(
         x, y, z, sx, sy, sz, qw, qx, qy, qz,
-        torch.sigmoid(slices["opacity"][:, 0]), *cam_args, image_height,
-        image_width, mode=mode, use_filter=use_filter,
+        torch.sigmoid(slices["opacity"][:, 0]), *_cam_args(cam),
+        image_height, image_width, mode=mode, use_filter=use_filter,
         active_mask=lane_valid, tight_radius=True,
     )
     render, alpha, pair_total = _render_tiled_cols(
         splat_cols, tuple(sh_to_rgb(slices["colors"]).unbind(1)), background,
         image_height, image_width, max_pairs, lane_prefix,
-        pack_pairs=pack_pairs,
     )
     return "frame", (render, alpha, torch.cat([counts, pair_total[None]]),
                      pair_total)
+
+
+def alive_rows(params: dict, tree_arrays: dict, is_leaf_opt, cap_sort: int):
+    """The rows [:cap_sort] of every capacity-axis array (all rows where
+    cap_sort is 0 or the capacity): points past the alive bucket are dead
+    by construction, so the frame's capacity-axis passes run over those
+    rows only."""
+    cap = params["xyz"].shape[0]
+    if not 0 < cap_sort < cap:
+        return params, tree_arrays, is_leaf_opt
+    return ({k: v[:cap_sort] for k, v in params.items()},
+            {k: (v[:cap_sort] if v.dim() >= 1 and v.shape[0] == cap else v)
+             for k, v in tree_arrays.items()},
+            None if is_leaf_opt is None else is_leaf_opt[:cap_sort])
 
 
 @torch.no_grad()
@@ -458,17 +575,10 @@ def fused_prepare_render(params: dict, tree_arrays: dict, cam: dict, n_alive,
     cap = params["xyz"].shape[0]
     if w_full is not None and w_full.shape[0] == cap and 0 < cap_sort < cap:
         w_full = w_full[:cap_sort]
-    if 0 < cap_sort < cap:
-        # points past the alive bucket are dead by construction, so the
-        # capacity-axis passes run over [:cap_sort] only
-        if cap_sort < k_visible:
-            raise ValueError(f"cap_sort {cap_sort} < k_visible {k_visible}")
-        params = {k: v[:cap_sort] for k, v in params.items()}
-        tree_arrays = {
-            k: (v[:cap_sort] if v.dim() >= 1 and v.shape[0] == cap else v)
-            for k, v in tree_arrays.items()
-        }
-        is_leaf_opt = is_leaf_opt[:cap_sort]
+    if 0 < cap_sort < cap and cap_sort < k_visible:
+        raise ValueError(f"cap_sort {cap_sort} < k_visible {k_visible}")
+    params, tree_arrays, is_leaf_opt = alive_rows(params, tree_arrays,
+                                                  is_leaf_opt, cap_sort)
     need = ["xyz", "colors", "scaling", "opacity", "rotation"]
     if sh_degree > 0 and "shs" in params:
         need.append("shs")
@@ -527,6 +637,47 @@ def fused_prepare_render(params: dict, tree_arrays: dict, cam: dict, n_alive,
     return out["render"], out["alpha"], counts, pair_total
 
 
+def root_cull_stages(params: dict, tree_arrays: dict, cam: dict, n_alive,
+                     image_height: int, image_width: int,
+                     mode: str = "antialias", prep_backend: str = "tiled",
+                     prep_max_pairs: int = 1 << 20, check_scale: int = 1,
+                     n_roots: int = 0, cap_sort: int = 0):
+    """`fused_root_cull` as named stages over one state dict:
+
+      candidates: the root prefix's frustum test and activations ->
+        "cand", "opacity", "scaling", "rotation";
+      check: the root weight render (K1 "weights") -> "weight_ok" (R,);
+      expand: each row takes its root's verdict (`expand_weight_full`) ->
+        "w_full" (cap_sort or cap,).
+    """
+    params, tree_arrays, _ = alive_rows(params, tree_arrays, None, cap_sort)
+    cap = params["xyz"].shape[0]
+    R = n_roots if 0 < n_roots <= cap else cap
+    x = params["xyz"][:R]
+
+    def candidates_stage(s):
+        alive = torch.arange(cap, device=x.device) < n_alive
+        px, py, pz, _ = gm.project_ndc_c(x[:, 0], x[:, 1], x[:, 2],
+                                         cam["full_proj"])
+        s["cand"] = (gm.frustum_flag_c(px, py, pz, padding=0.5)
+                     & (tree_arrays["index_parent"][:R] == -1) & alive[:R])
+        s["opacity"] = torch.sigmoid(params["opacity"][:R, 0])
+        s["scaling"] = torch.exp(params["scaling"][:R])
+        s["rotation"] = _normalize_rows(params["rotation"][:R])
+
+    def check_stage(s):
+        s["weight_ok"] = _check_root_weights(
+            x, s["opacity"], s["scaling"], s["rotation"], s["cand"], cam,
+            image_height, image_width, mode, prep_backend, prep_max_pairs,
+            check_scale)
+
+    def expand_stage(s):
+        s["w_full"] = expand_weight_full(s["weight_ok"], tree_arrays, cap, R)
+
+    return [("candidates", candidates_stage), ("check", check_stage),
+            ("expand", expand_stage)]
+
+
 @torch.no_grad()
 def fused_root_cull(params: dict, tree_arrays: dict, cam: dict, n_alive,
                     image_height: int, image_width: int,
@@ -535,31 +686,12 @@ def fused_root_cull(params: dict, tree_arrays: dict, cam: dict, n_alive,
                     n_roots: int = 0, cap_sort: int = 0):
     """The capacity-axis weight-cull mask of the flat_slice frame: the root
     check render, then each row takes its root's verdict
-    (`expand_weight_full`). Returns (cap_sort or cap,) bool for
-    fused_prepare_render(w_full=...)."""
-    cap = params["xyz"].shape[0]
-    if 0 < cap_sort < cap:
-        params = {k: v[:cap_sort] for k, v in params.items()}
-        tree_arrays = {
-            k: (v[:cap_sort] if v.dim() >= 1 and v.shape[0] == cap else v)
-            for k, v in tree_arrays.items()
-        }
-        cap = cap_sort
-    dev = params["xyz"].device
-    alive = torch.arange(cap, device=dev) < n_alive
-    R = n_roots if 0 < n_roots <= cap else cap
-    x = params["xyz"][:R]
-    px, py, pz, _ = gm.project_ndc_c(x[:, 0], x[:, 1], x[:, 2],
-                                     cam["full_proj"])
-    cand = (gm.frustum_flag_c(px, py, pz, padding=0.5)
-            & (tree_arrays["index_parent"][:R] == -1) & alive[:R])
-    weight_ok = _check_root_weights(
-        x, torch.sigmoid(params["opacity"][:R, 0]),
-        torch.exp(params["scaling"][:R]),
-        _normalize_rows(params["rotation"][:R]), cand, cam, image_height,
-        image_width, mode, prep_backend, prep_max_pairs, check_scale,
-    )
-    return expand_weight_full(weight_ok, tree_arrays, cap, R)
+    (`expand_weight_full`); the stages of `root_cull_stages`. Returns
+    (cap_sort or cap,) bool for fused_prepare_render(w_full=...)."""
+    return run_stages(root_cull_stages(
+        params, tree_arrays, cam, n_alive, image_height, image_width, mode,
+        prep_backend, prep_max_pairs, check_scale, n_roots,
+        cap_sort))["w_full"]
 
 
 def expand_weight_full(weight_ok, tree_arrays: dict, cap: int, R: int):
@@ -795,13 +927,169 @@ def _clamp_scaling(scaling, counter: dict, index, update_mask,
     return s_pad.index_copy_(0, idx, s)[:scaling.shape[0]]
 
 
+def train_step_stages(params: dict, moments: dict, counter: dict, keep_leaf,
+                      keep_node, cam: dict, gt, background, lrs: dict,
+                      global_step, corr_state: dict, view_index: int,
+                      mask_ignore, gt_depth, cfg: StepConfig, fg_mask=None,
+                      bbox=None, depth_patches=None, m_slices=None):
+    """The training step as named stages over one state dict; `run_stages`
+    of them is `_train_step_core` (its arguments), and the step's
+    dissection (scripts/bench_trainstep_dissect.py) times their cumulative
+    prefixes:
+
+      compact: the rows the step renders and updates (`_step_slices`) ->
+        "slices", "index", "lane_valid";
+      forward: the differentiable leaves and the render with stats -> "out";
+      loss: 0.8 L1 + 0.2 SSIM (+ with render_depth the depth pass and its
+        patch loss) -> "loss", "l1", "ssim", "d_loss";
+      backward: the gradients, zeroed where the loss is not finite ->
+        "grads";
+      update: counters, Adam, the scale clamp and the per-view gain ->
+        "result" (_train_step_core's return value).
+    """
+    cap = params["xyz"].shape[0]
+    dev = params["xyz"].device
+    opt_params = {k: params[k] for k in cfg.opt_keys if k in params}
+    # identity fast path: the leaf bucket covers the whole capacity, so the
+    # dense rows ARE the slice (no compaction, dense masked Adam); row for
+    # row equal to the compacted path
+    identity_fast = (cfg.k_node == 0 and cfg.k_leaf == cap
+                     and not cfg.spilled and cfg.identity_ok)
+
+    def compact_stage(s):
+        with record_function("train_step.compact"):
+            s["slices"], s["index"], s["lane_valid"] = _step_slices(
+                opt_params, keep_leaf, keep_node, cfg, identity_fast)
+
+    def forward_stage(s):
+        K = s["index"].shape[0]
+        s["leaves"] = {k: v.detach().requires_grad_(True)
+                       for k, v in s["slices"].items()}
+        s["offset"] = torch.zeros((K, 2), dtype=torch.float32, device=dev,
+                                  requires_grad=True)
+        correction = (corr_state["values"][view_index] if cfg.use_correction
+                      else torch.ones(3, dtype=torch.float32, device=dev))
+        s["correction"] = correction.detach().requires_grad_(True)
+        with torch.enable_grad(), record_function("train_step.render"):
+            s["out"] = _activate_and_rasterize(s["leaves"], s["offset"], cam,
+                                               background, s["lane_valid"],
+                                               cfg)
+
+    def loss_stage(s):
+        out = s["out"]
+        with torch.enable_grad():
+            with record_function("train_step.loss"):
+                loss, s["l1"], s["ssim"] = _loss(
+                    out, gt, background, s["correction"], mask_ignore,
+                    fg_mask, bbox, cfg)
+            s["d_loss"] = None
+            if cfg.render_depth:
+                with record_function("train_step.depth"):
+                    ones = torch.ones_like(out["depth_cam"])
+                    depth_cols = torch.stack(
+                        [out["depth_cam"], s["leaves"]["xyz"][:, 2], ones],
+                        dim=-1)
+                    aux_out = _activate_and_rasterize(
+                        s["leaves"], s["offset"], cam, background,
+                        s["lane_valid"], cfg, colors=depth_cols)
+                    s["d_loss"] = depth_patch_loss(
+                        aux_out["render"][0], gt_depth, aux_out["render"][2],
+                        *depth_patches)
+                    loss = loss + 1.0 * s["d_loss"]
+        s["loss"] = loss
+
+    def backward_stage(s):
+        wrt = [*s["leaves"].values(), s["offset"], s["correction"]]
+        # the backward's kernels run on autograd's device thread, outside
+        # this range; a trace attributes them by name
+        with torch.enable_grad(), record_function("train_step.backward"):
+            grads = torch.autograd.grad(s["loss"], wrt, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(wrt, grads)]
+        s["loss"] = loss = s["loss"].detach()
+        # non-finite guard: one bad step must not poison the model through
+        # the Adam moments; zero the gradients and mask the update (the loss
+        # metric still reports the NaN)
+        s["loss_ok"] = torch.isfinite(loss)
+        s["grads"] = [torch.where(s["loss_ok"], g,
+                                  torch.zeros((), dtype=g.dtype, device=dev))
+                      for g in grads]
+
+    def update_stage(s):
+        out, index, lane_valid = s["out"], s["index"], s["lane_valid"]
+        grads, n_leaves = s["grads"], len(s["leaves"])
+        g_slices = dict(zip(s["leaves"], grads[:n_leaves]))
+        g_offset, g_corr = grads[n_leaves:]
+        K = index.shape[0]
+        # the oracle's stats come out of differentiable ops: the counters
+        # keep values, not the render's graph
+        radii = out["radii"].detach()
+        with record_function("train_step.counter"):
+            new_counter = update_counter(counter, index, radii,
+                                         out["point_weight"].detach(),
+                                         out["point_id_pixel"], g_offset,
+                                         identity=identity_fast)
+        flag_vis = radii > 0
+        update_mask = (lane_valid & flag_vis
+                       & (torch.arange(K, device=dev) < cfg.k_leaf)
+                       & s["loss_ok"])
+        out_slices = None
+        with record_function("train_step.adam"):
+            if cfg.spilled:
+                # the host-gathered rows go up only now, after the
+                # backward, so they are not resident at its peak (pinned:
+                # non-blocking)
+                m_dev = {mk: {k: v.to(dev, non_blocking=True)
+                              for k, v in rows.items()}
+                         for mk, rows in m_slices.items()}
+                new_params, new_moments, out_slices = sparse_adam_step(
+                    params, moments, g_slices, index, update_mask,
+                    global_step, lrs, spilled=cfg.spilled, m_slices=m_dev)
+            elif identity_fast:
+                new_params, new_moments = dense_adam_step(
+                    params, moments, g_slices, update_mask, global_step, lrs)
+            else:
+                new_params, new_moments = sparse_adam_step(
+                    params, moments, g_slices, index, update_mask,
+                    global_step, lrs)
+        new_corr = corr_state
+        with record_function("train_step.clamp_correction"):
+            new_params = dict(new_params)
+            new_params["scaling"] = _clamp_scaling(
+                new_params["scaling"], new_counter, index, update_mask,
+                identity_fast)
+            if cfg.use_correction:
+                new_corr = _correction_step(corr_state, view_index, g_corr)
+        metrics = {
+            "loss": s["loss"],
+            "l1": s["l1"].detach(),
+            "ssim": s["ssim"].detach(),
+            "num_rendered": torch.sum(flag_vis & lane_valid),
+        }
+        if s["d_loss"] is not None:
+            metrics["depth"] = s["d_loss"].detach()
+        if "pair_total" in out:  # the binning's unclamped demand (telemetry)
+            metrics["pair_total"] = out["pair_total"]
+        aux = {"render": out["render"].detach(), "radii": radii,
+               "index": index}
+        if cfg.spilled:
+            aux["m_slices"] = out_slices
+            aux["update_mask"] = update_mask
+        s["result"] = (new_params, new_moments, new_counter, new_corr,
+                       metrics, aux)
+
+    return [("compact", compact_stage), ("forward", forward_stage),
+            ("loss", loss_stage), ("backward", backward_stage),
+            ("update", update_stage)]
+
+
 def _train_step_core(params: dict, moments: dict, counter: dict, keep_leaf,
                      keep_node, cam: dict, gt, background, lrs: dict,
                      global_step, corr_state: dict, view_index: int,
                      mask_ignore, gt_depth, cfg: StepConfig, fg_mask=None,
                      bbox=None, depth_patches=None, m_slices=None):
     """Returns (params, moments, counter, corr_state, metrics, aux); the
-    input dicts are left as they were.
+    input dicts are left as they were. The stages of `train_step_stages`.
 
     gt_depth: (Hd, Wd) monocular inverse depth and depth_patches its patch
     corners (rows, cols), both needed with cfg.render_depth. m_slices: the
@@ -812,114 +1100,10 @@ def _train_step_core(params: dict, moments: dict, counter: dict, keep_leaf,
         raise ValueError("render_depth needs gt_depth and depth_patches")
     if cfg.spilled and m_slices is None:
         raise ValueError(f"spilled moments {cfg.spilled} need m_slices")
-    cap = params["xyz"].shape[0]
-    dev = params["xyz"].device
-    opt_params = {k: params[k] for k in cfg.opt_keys if k in params}
-    # identity fast path: the leaf bucket covers the whole capacity, so the
-    # dense rows ARE the slice (no compaction, dense masked Adam); row for
-    # row equal to the compacted path
-    identity_fast = (cfg.k_node == 0 and cfg.k_leaf == cap
-                     and not cfg.spilled and cfg.identity_ok)
-    with record_function("train_step.compact"):
-        slices, index, lane_valid = _step_slices(
-            opt_params, keep_leaf, keep_node, cfg, identity_fast)
-    K = index.shape[0]
-    leaves = {k: v.detach().requires_grad_(True) for k, v in slices.items()}
-    offset = torch.zeros((K, 2), dtype=torch.float32, device=dev,
-                         requires_grad=True)
-    correction = (corr_state["values"][view_index] if cfg.use_correction
-                  else torch.ones(3, dtype=torch.float32, device=dev))
-    correction = correction.detach().requires_grad_(True)
-
-    with torch.enable_grad():
-        with record_function("train_step.render"):
-            out = _activate_and_rasterize(leaves, offset, cam, background,
-                                          lane_valid, cfg)
-        with record_function("train_step.loss"):
-            loss, l1, ssim = _loss(out, gt, background, correction,
-                                   mask_ignore, fg_mask, bbox, cfg)
-        d_loss = None
-        if cfg.render_depth:
-            with record_function("train_step.depth"):
-                ones = torch.ones_like(out["depth_cam"])
-                depth_cols = torch.stack(
-                    [out["depth_cam"], leaves["xyz"][:, 2], ones], dim=-1)
-                aux_out = _activate_and_rasterize(
-                    leaves, offset, cam, background, lane_valid, cfg,
-                    colors=depth_cols)
-                d_loss = depth_patch_loss(aux_out["render"][0], gt_depth,
-                                          aux_out["render"][2],
-                                          *depth_patches)
-                loss = loss + 1.0 * d_loss
-        wrt = [*leaves.values(), offset, correction]
-        # the backward's kernels run on autograd's device thread, outside
-        # this range; a trace attributes them by name
-        with record_function("train_step.backward"):
-            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
-             for x, g in zip(wrt, grads)]
-    loss = loss.detach()
-    # non-finite guard: one bad step must not poison the model through the
-    # Adam moments; zero the gradients and mask the update (the loss
-    # metric still reports the NaN)
-    loss_ok = torch.isfinite(loss)
-    grads = [torch.where(loss_ok, g, torch.zeros((), dtype=g.dtype,
-                                                 device=dev)) for g in grads]
-    g_slices = dict(zip(leaves, grads[:len(leaves)]))
-    g_offset, g_corr = grads[len(leaves):]
-
-    # the oracle's stats come out of differentiable ops: the counters keep
-    # values, not the render's graph
-    radii = out["radii"].detach()
-    with record_function("train_step.counter"):
-        counter = update_counter(counter, index, radii,
-                                 out["point_weight"].detach(),
-                                 out["point_id_pixel"], g_offset,
-                                 identity=identity_fast)
-    flag_vis = radii > 0
-    update_mask = (lane_valid & flag_vis
-                   & (torch.arange(K, device=dev) < cfg.k_leaf) & loss_ok)
-    out_slices = None
-    with record_function("train_step.adam"):
-        if cfg.spilled:
-            # the host-gathered rows go up only now, after the backward, so
-            # they are not resident at its peak (pinned: non-blocking)
-            m_dev = {mk: {k: v.to(dev, non_blocking=True)
-                          for k, v in rows.items()}
-                     for mk, rows in m_slices.items()}
-            params, moments, out_slices = sparse_adam_step(
-                params, moments, g_slices, index, update_mask, global_step,
-                lrs, spilled=cfg.spilled, m_slices=m_dev)
-        elif identity_fast:
-            params, moments = dense_adam_step(params, moments, g_slices,
-                                              update_mask, global_step, lrs)
-        else:
-            params, moments = sparse_adam_step(params, moments, g_slices,
-                                               index, update_mask,
-                                               global_step, lrs)
-
-    with record_function("train_step.clamp_correction"):
-        params = dict(params)
-        params["scaling"] = _clamp_scaling(params["scaling"], counter, index,
-                                           update_mask, identity_fast)
-        if cfg.use_correction:
-            corr_state = _correction_step(corr_state, view_index, g_corr)
-
-    metrics = {
-        "loss": loss,
-        "l1": l1.detach(),
-        "ssim": ssim.detach(),
-        "num_rendered": torch.sum(flag_vis & lane_valid),
-    }
-    if d_loss is not None:
-        metrics["depth"] = d_loss.detach()
-    if "pair_total" in out:  # the binning's unclamped demand (telemetry)
-        metrics["pair_total"] = out["pair_total"]
-    aux = {"render": out["render"].detach(), "radii": radii, "index": index}
-    if cfg.spilled:
-        aux["m_slices"] = out_slices
-        aux["update_mask"] = update_mask
-    return params, moments, counter, corr_state, metrics, aux
+    return run_stages(train_step_stages(
+        params, moments, counter, keep_leaf, keep_node, cam, gt, background,
+        lrs, global_step, corr_state, view_index, mask_ignore, gt_depth, cfg,
+        fg_mask, bbox, depth_patches, m_slices))["result"]
 
 
 def fused_train_step(params, moments, counter, keep_leaf, keep_node, cam, gt,

@@ -680,13 +680,11 @@ def rasterize_forward_packed(pair_data, tile_start, tile_count, background,
     return color, tfinal
 
 
-def render_pairs_packed(splats, colors, background, image_height: int,
-                        image_width: int, max_pairs: int, active_prefix):
-    """Inference render on the packed pair pipeline: expansion -> one sort
-    of six payloads -> the (8, A + 128) pack (K4) -> K5. splats: SplatCols
-    (or Splats) of a compacted slice whose `active_prefix` is a prefix
-    mask. Returns (color (3, Hp, Wp), tfinal (Hp, Wp), total), total the
-    unclamped pair demand."""
+def packed_pairs(splats, colors, image_height: int, image_width: int,
+                 max_pairs: int, active_prefix):
+    """The packed frame's binning: expansion -> one sort of six payloads ->
+    the (8, A + 128) pack (K4). Returns (pair_data, tile_start, tile_count,
+    tiles_x, tiles_y, total), total the unclamped pair demand."""
     es = expand_sort_pairs(
         splats, colors, image_height, image_width, max_pairs,
         runs_tail_only=True, active_prefix=active_prefix, inference_pack=True,
@@ -704,11 +702,21 @@ def render_pairs_packed(splats, colors, background, image_height: int,
                                 dtype=torch.float32, device=tile_s.device)
         for r, row in enumerate(es["packed6"]):
             pair_data[r, :A] = row.view(torch.float32)
-    color, tfinal = rasterize_forward_packed(
-        pair_data, starts[:-1], starts[1:] - starts[:-1], background,
-        es["tiles_x"], es["tiles_y"],
-    )
-    return color, tfinal, es["total"]
+    return (pair_data, starts[:-1], starts[1:] - starts[:-1], es["tiles_x"],
+            es["tiles_y"], es["total"])
+
+
+def render_pairs_packed(splats, colors, background, image_height: int,
+                        image_width: int, max_pairs: int, active_prefix):
+    """Inference render on the packed pair pipeline: `packed_pairs`, then
+    K5. splats: SplatCols (or Splats) of a compacted slice whose
+    `active_prefix` is a prefix mask. Returns (color (3, Hp, Wp), tfinal
+    (Hp, Wp), total), total the unclamped pair demand."""
+    pair_data, start, count, tiles_x, tiles_y, total = packed_pairs(
+        splats, colors, image_height, image_width, max_pairs, active_prefix)
+    color, tfinal = rasterize_forward_packed(pair_data, start, count,
+                                             background, tiles_x, tiles_y)
+    return color, tfinal, total
 
 
 # --------------------------------------------------------------------------

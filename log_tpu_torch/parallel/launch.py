@@ -1,14 +1,14 @@
 """Start n ranks of a function in n processes, each in one process group,
 and collect what they return; for tests and the smoke run.
 
-    results = spawn(fn, world, device, args=(...), timeout_s=120)
+    results = spawn(fn, world, device="cuda", args=(...), timeout_s=120)
 
 runs fn(rank, world, rank_device, *args) in `world` processes started with
 torch.multiprocessing's spawn method (fn and args must pickle: a function
 at the top level of an importable module). The group meets over a FileStore
 in a fresh temporary directory, so that concurrent launches never share a
-port. device "cpu": gloo, one thread per rank; "cuda": NCCL, rank r on card
-r. Returns the ranks' return values in rank order. Raises if a rank raises,
+port. device "cuda" (the default): NCCL, rank r on card r; "cpu": gloo,
+one thread per rank. Returns the ranks' return values in rank order. Raises if a rank raises,
 dies, or the ranks outlive timeout_s; every rank is stopped first.
 """
 from __future__ import annotations
@@ -48,7 +48,8 @@ def _rank_main(rank, world, device, store_path, timeout_s, fn, args, out):
         raise
 
 
-def spawn(fn, world: int, device="cpu", args=(), timeout_s: float = 120.0):
+def spawn(fn, world: int, device="cuda", args=(),
+          timeout_s: float = 120.0):
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="log_tpu_ranks_") as tmp:

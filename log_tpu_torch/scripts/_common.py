@@ -1,6 +1,7 @@
-"""Shared pieces of the scale scripts: the device rule, the card line, the
-orbit camera of the repo's scripts (`make_cam`), the synthetic tree's load,
-and the honest timing loop of the frame cells.
+"""Shared pieces of the scale and dissection scripts: the device rule, the
+card line, the orbit camera of the repo's scripts (`make_cam`), the
+synthetic tree's load, the honest timing loop of the frame cells, and the
+stage timer (`time_stage`, `stage_table`).
 
 The honest loop sizes a cell's pair budget from the unclamped demand that
 its sizing frames measured (`budget_for_demand`), times the frames between
@@ -18,6 +19,7 @@ import math
 import subprocess
 import time
 import tracemalloc
+import warnings
 
 import numpy as np
 import torch
@@ -316,6 +318,153 @@ def block_cell(model, cams, min_res: float, frames: int, cull_every: int,
                 sizing_demand=demand, k_blocks=kb, blocks_eligible=n_elig,
                 blocks_total=B)
     return cell, (frame, cull)
+
+
+def _device_events(prof):
+    """The profiler's device-side kernel records (not the ranges that
+    record_function also draws on the device timeline)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("train_step.")]
+
+
+PROFILE_PAD_S = 0.05  # idle host time at each end of a profiled window
+PROFILE_TRIES = 3
+
+
+def profiled(fn, reps: int, dev):
+    """(device ms per call, device kernel launches per call) of fn over reps
+    calls under torch.profiler: the time of every device record (copies
+    and fills included), the count of the kernels. None on the CPU. The
+    profiler keeps only the device records inside its window, so the calls
+    sit between two idle pads, and a window that holds no device record is
+    taken again, up to PROFILE_TRIES times (a stage that launches nothing
+    reads 0 after the last)."""
+    if dev.type != "cuda":
+        return None, None
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        sync(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps):
+                fn()
+            sync(dev)
+            time.sleep(PROFILE_PAD_S)
+        events = _device_events(prof)
+        if events:
+            break
+    us = sum(e.device_time_total if hasattr(e, "device_time_total")
+             else e.cuda_time_total for e in events)
+    n_kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
+                    for e in events)
+    return us / 1e3 / reps, n_kernels / reps
+
+
+def count_syncs(fn, dev) -> int | None:
+    """Host-device synchronizations of one call of fn: the warnings of
+    torch.cuda.set_sync_debug_mode("warn") (None on the CPU)."""
+    if dev.type != "cuda":
+        return None
+    sync(dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sync(dev)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def time_stage(name: str, fn, reps: int, dev, warmup: int = 1) -> dict:
+    """One row of a stage table: fn (one call of the stage on prepared
+    inputs) after warmup calls, then
+      host_ms: median host time of reps calls, a synchronize around each;
+      device_ms, other_launches: the profiler's device kernel time and
+        kernel count per call over reps more calls (a separate window: the
+        profiler inflates host time), other_launches excluding the seven
+        kernels' own;
+      launches: the seven kernels' launches per call (ops.kernels counters);
+      syncs: host syncs in one more call (set_sync_debug_mode);
+      peak_bytes: the peak device memory of one more call.
+    Device fields are None on the CPU."""
+    for _ in range(warmup):
+        fn()
+    before = dict(kernels.LAUNCHES)
+    ms = []
+    for _ in range(reps):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launched = {k: v / reps for k, v in launches_since(before).items() if v}
+    device_ms, n_dev = profiled(fn, reps, dev)
+    syncs = count_syncs(fn, dev)
+    reset_peak(dev)
+    fn()
+    return {"stage": name, "host_ms": float(np.median(ms)),
+            "host_ms_min": float(np.min(ms)), "device_ms": device_ms,
+            "launches": launched,
+            "other_launches": (None if n_dev is None
+                               else n_dev - sum(launched.values())),
+            "syncs": syncs, "peak_bytes": peak_bytes(dev)}
+
+
+def stage_chain(stages, state=None) -> list:
+    """The state dict before each stage of a chain [(name, fn(state))] run
+    once in order, and after the last: len(stages) + 1 shallow copies (the
+    stages build new tensors and leave their inputs as they were)."""
+    state = {} if state is None else dict(state)
+    snaps = [dict(state)]
+    for _, fn in stages:
+        fn(state)
+        snaps.append(dict(state))
+    return snaps
+
+
+def stage_table(stages, reps: int, dev, state=None, warmup: int = 1):
+    """(rows, final state): each stage of the chain timed alone
+    (`time_stage`) on the state the stages before it left, then a row
+    "sum" of the stages' host and device times."""
+    snaps = stage_chain(stages, state)
+    rows = [time_stage(name, lambda fn=fn, i=i: fn(dict(snaps[i])), reps,
+                       dev, warmup)
+            for i, (name, fn) in enumerate(stages)]
+    rows.append(sum_row("sum", rows))
+    return rows, snaps[-1]
+
+
+def sum_row(name: str, rows) -> dict:
+    """The sum of rows' times and launches (peak: their largest)."""
+    def total(key):
+        vals = [r[key] for r in rows]
+        return None if any(v is None for v in vals) else sum(vals)
+
+    launched = {}
+    for r in rows:
+        for k, v in r["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    peaks = [r["peak_bytes"] for r in rows]
+    return {"stage": name, "host_ms": total("host_ms"),
+            "host_ms_min": total("host_ms_min"),
+            "device_ms": total("device_ms"), "launches": launched,
+            "other_launches": total("other_launches"),
+            "syncs": total("syncs"),
+            "peak_bytes": None if None in peaks else max(peaks)}
+
+
+def residual(full: dict, parts: dict) -> dict:
+    """full's host and device ms less parts' (the time no stage holds)."""
+    return {k: (None if full[k] is None or parts[k] is None
+                else full[k] - parts[k]) for k in ("host_ms", "device_ms")}
 
 
 def emit(out: dict) -> None:

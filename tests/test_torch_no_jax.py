@@ -1,5 +1,9 @@
 """log_tpu_torch must stand without JAX: the GPU machine has none.
 
+The scripts (scale, dissection and probe scripts) and the stage and scene
+functions they call are named explicitly, so that a renamed or missing one
+fails here.
+
 Every module of the package is imported in a fresh interpreter, which must
 then hold neither `jax` nor `log_tpu` in sys.modules, nor the optional host
 packages `cv2`, `PIL` and `yaml` (imported only inside the JPEG and video
@@ -40,8 +44,22 @@ def test_package_imports_without_jax():
                  "apps.calibration.read_gps_info",
                  "apps.calibration.run_midas", "scripts._common",
                  "scripts.bench_trainstep", "scripts.bench_spill",
-                 "scripts.bench_4k", "scripts.bench_capacity"):
+                 "scripts.bench_4k", "scripts.bench_capacity",
+                 "scripts.bench_frame_dissect",
+                 "scripts.bench_trainstep_dissect", "scripts.bench_kernel",
+                 "scripts.bench_explore", "scripts.bench_sortcost",
+                 "scripts.bench_gathercost", "scripts.bench_blockgather",
+                 "scripts.backend_equivalence",
+                 "scripts.check_sharded_fullscale"):
         assert f"log_tpu_torch.{name}" in names
+    from log_tpu_torch.model import train_step
+    from log_tpu_torch.utils import synth_tree
+
+    for fn in ("build_scene", "pad_scene", "checkpoint_scene", "scene_tree"):
+        assert callable(getattr(synth_tree, fn))
+    for fn in ("run_stages", "flat_slice_stages", "packed_frame_stages",
+               "root_cull_stages", "train_step_stages", "alive_rows"):
+        assert callable(getattr(train_step, fn))
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
