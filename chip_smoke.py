@@ -224,7 +224,19 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    bucket overflow; the first chain runs, the K6 compaction, kernel2's K5,
    the first full step and bench_kernel's K4, K1 and K5 calls held
    against the plain versions;
-23. cli_mask: config/synthetic's scene made on the card, masks/ by
+23. bench (after dissect): log_tpu_torch/scripts/bench.py, the port of
+   bench.py, at full size (the 3.24M tree built on the card, 1920x1088,
+   30 timed frames a pass, BENCH_REPEATS passes): the headline
+   (fused_root_cull over cap_sort, then the flat_slice frame with its
+   w_full, every frame, min_res 3), the block frame culled every 4 frames,
+   and both at the realistic min_res (the first candidate whose cut holds
+   300,000 points); its JSON on a line of its own; no bucket or budget
+   overflow, every timed frame finite, K1, K4, K3p and K5 launched in
+   every cell's timed frames; each cell's first timed frame with its cull
+   replayed in a recording and its calls (K3 too, which the cull's
+   binning runs) held against the plain versions, the headline's K3p and
+   K5 timed;
+24. cli_mask: config/synthetic's scene made on the card, masks/ by
    thresholding its white background, config/synthetic_mask through
    log_tpu_torch.apps.train (MaskForeground: every step must launch K4,
    K3, K1 and K2 with the mask handed to it, the tree stage's loss must
@@ -496,6 +508,12 @@ DISSECT_SHARDED_FRAMES = 4
 DISSECT_SORT_SIZES = (1 << 20, 1 << 22)
 DISSECT_SORT_PAYLOADS = (1, 7, 15)
 DISSECT_EQUIV_OUT = "output/chip_equiv"
+# the bench phase (log_tpu_torch/scripts/bench.py): bench.py's four cells
+# at full size; the kernels each cell's timed frames must launch (K1 and
+# K4 in the cull, K4, K3p and K5 in the frame)
+BENCH_REPEATS = 5
+BENCH_KERNELS = ("pack_rows", "rasterize_fwd", "expand_packed",
+                 "rasterize_fwd_packed")
 DISSECT_KERNELS = {
     "dissect_frame": ("pack_rows", "expand_packed", "rasterize_fwd_packed",
                       "rasterize_fwd", "stream_compact"),
@@ -3823,6 +3841,81 @@ def dissect_phase(device, smi, log):
     return out, launches, errs, rows, failures
 
 
+def bench_phase(device, log):
+    """log_tpu_torch/scripts/bench.py at full size (600k roots, 3.24M
+    points, 1920x1088, 30 frames, BENCH_REPEATS repeats) between a reset
+    and a read of the launch counts; its JSON on a line of its own. Each
+    cell's first timed frame (with its cull) was replayed inside a recording;
+    those kernel calls are held against the plain versions, and the
+    headline's K3p and K5 timed. Fails where a cell's budget, slice bucket
+    or block bucket overflowed, a timed frame was not finite, a kernel of
+    BENCH_KERNELS did not launch in a cell's timed frames, or a held call
+    disagrees. Returns (json, launches by cell, frames by cell, held errors,
+    kernel rows, failures)."""
+    import torch
+
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.scripts import bench
+
+    held = {}
+
+    def hold(label):
+        return recording(held.setdefault(label, {}), copy="cpu")
+
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    res = bench.run(repeats=BENCH_REPEATS, device=device, hold=hold)
+    total = dict(kernels.LAUNCHES)
+    log(json.dumps(res))
+    launches, n_calls, failures = {}, {}, []
+    inside = dict.fromkeys(total, 0)
+    labels = {}
+    for key in bench.CELLS:
+        cell = res[key]
+        labels[f"bench {cell['label']}"] = key
+        launches[f"bench_{key}"] = cell["launches"]
+        n_calls[f"bench_{key}"] = cell["frames"] * cell["repeats"]
+        for k in inside:
+            inside[k] += cell["launches"][k]
+        log(f"bench {key} ({cell['label']}): {cell['ms_per_frame']} ms a "
+            f"frame (passes {cell['ms_per_frame_runs']}), device "
+            f"{cell['device_ms_per_frame']} ms, busy {cell['busy_share']}; "
+            f"cut {cell['cut']} (bucket "
+            f"{cell['k_vis']}), pairs {cell['pairs_measured']} of "
+            f"{cell['max_pairs']} (rebumped {cell['budget_rebumped']}), cull "
+            f"pairs {cell['cull_pairs']}; launches a frame "
+            f"{cell['launches_per_frame']}, syncs {cell['syncs_per_frame']}, "
+            f"peak {cell['peak_gb']} GiB; top {cell['top_device_ops']}")
+        if cell["budget_overflow"] or cell["cut_overflow"] or cell.get(
+                "blocks_overflow"):
+            failures.append(f"bench {key}: a bucket or budget overflowed")
+        if not cell["images_finite"]:
+            failures.append(f"bench {key}: a timed frame is not finite")
+        if min(cell["launches"][k] for k in BENCH_KERNELS) < 1:
+            failures.append(f"bench {key}: launches {cell['launches']}")
+    launches["bench_other"] = {k: total[k] - inside[k] for k in total}
+    missing = set(labels) - set(held)
+    if missing:
+        failures.append(f"bench: no calls recorded for {sorted(missing)}")
+    errs, rows = {}, {}
+    for label in list(held):
+        calls = _copied(held.pop(label), device)
+        if not set(BENCH_KERNELS) <= set(calls):
+            failures.append(f"{label}: held calls {sorted(calls)}")
+        e, f = hold_calls(calls, label, log, rows)
+        failures += f
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        if labels.get(label) == "headline" and "expand_packed" in calls:
+            prow, f = compare_packed_kernels(calls, log, profile=False)
+            failures += f
+            for k, v in prow.items():
+                rows.setdefault(k, []).append(dict(v, call=label))
+        del calls
+        torch.cuda.empty_cache()
+    return res, launches, n_calls, errs, rows, failures
+
+
 def write_foreground_masks(root, log):
     """masks/<view>.png beside images/<view>.png: 255 where a pixel is not
     the scene's white background (every channel under CLI_MASK_WHITE)."""
@@ -4640,12 +4733,22 @@ def main() -> int:
             rows[name]["modes"] += kernel_rows
         else:
             rows[name]["dissect_calls"] = kernel_rows
+    torch.cuda.empty_cache()
+    (bk_json, bk_launches, bk_calls, held["bench"], bk_rows,
+     bkfail), bk_s = timed(lambda: bench_phase(device, log))
+    failures += bkfail
+    bk_json["phase_s"] = bk_s
+    for name, kernel_rows in bk_rows.items():
+        if name == "rasterize_fwd":
+            rows[name]["modes"] += kernel_rows
+        else:
+            rows[name]["bench_calls"] = kernel_rows
     (cm_json, cm_launches, cm_calls, cmfail), cm_s = timed(
         lambda: cli_mask_phase(log))
     failures += cmfail
     cm_json["phase_s"]["total"] = cm_s
     log(f"phase wall times: scale {sc_s:.2f} s, dissect {dk_s:.2f} s, "
-        f"cli_mask {cm_s:.2f} s")
+        f"bench {bk_s:.2f} s, cli_mask {cm_s:.2f} s")
 
     log(json.dumps({
         "slice": slice_json,
@@ -4660,7 +4763,8 @@ def main() -> int:
         "sharded_step": ss_json, "sharded_render": sr_json,
         "cli_parallel": cp_json, "viewer": viewer_json,
         "vanilla": vanilla_json, "viewer_cli": vc_json, "tools": tools_json,
-        "scale": sc_json, "dissect": dk_json, "cli_mask": cm_json,
+        "scale": sc_json, "dissect": dk_json, "bench": bk_json,
+        "cli_mask": cm_json,
     }))
     kernels_json = []
     runs = dict(serve_runs, train=t_launches, growth=g_launches,
@@ -4668,7 +4772,7 @@ def main() -> int:
                 grown_frame=gf_launches, **cli_launches, **cd_launches,
                 sharded_step=ss_launches, **sr_launches, **cp_launches,
                 viewer=v_launches, **van_launches, viewer_cli=vc_launches,
-                **sc_launches, **dk_launches, **cm_launches)
+                **sc_launches, **dk_launches, **bk_launches, **cm_launches)
     # main-path calls per phase: frames, training steps, or renders
     n_calls = dict({phase: FRAMES for phase in serve_runs},
                    train=TRAIN_STEPS, growth=GROWTH_STEPS,
@@ -4678,7 +4782,8 @@ def main() -> int:
                    **cli_calls, **cd_calls, sharded_step=SHARDED_STEPS,
                    **{k: FRAMES for k in sr_launches}, **cp_steps,
                    viewer=VIEWER_REQUESTS, vanilla=FRAMES, check_viewer=1,
-                   viewer_cli=VIEWER_CLI_REQUESTS, **sc_calls, **cm_calls)
+                   viewer_cli=VIEWER_CLI_REQUESTS, **sc_calls, **bk_calls,
+                   **cm_calls)
     # the growth phases' own calls held against the plain versions
     for phase, errs in held.items():
         for name, err in errs.items():

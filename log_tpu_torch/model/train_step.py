@@ -89,7 +89,9 @@ def _check_root_weights(xyz, opacity, scaling, rotation, root_candidate, cam,
                         backend: str, max_pairs: int, check_scale: int):
     """Weight-render cull of the ROOT rows: a render of the candidate roots
     (at 1/check_scale resolution) keeps those whose max blend weight is
-    > 1e-8. Inputs are the activated root prefix rows; returns (R,) bool."""
+    > 1e-8. Inputs are the activated root prefix rows; returns ((R,) bool,
+    the check render's unclamped pair demand: a 0-d tensor, -1 on the
+    reference backend)."""
     chk_h = max(image_height // check_scale, 8)
     chk_w = max(image_width // check_scale, 128)
     common = dict(
@@ -119,14 +121,15 @@ def _check_root_weights(xyz, opacity, scaling, rotation, root_candidate, cam,
             with_stats="weights", tight_radius=True, runs_tail_only=True,
             prefix_mask=lane_valid, gid_ids=index, **common,
         )
-        return check["point_weight"] > 1e-8
+        return check["point_weight"] > 1e-8, check["pair_total"]
     check = rasterize_ref.rasterize(
         xyz=xyz, colors=torch.ones_like(xyz), opacity=opacity,
         scaling=scaling, rotation=rotation,
         means2d_offset=torch.zeros_like(xyz[:, :2]),
         active_mask=root_candidate, chunk=64, **common,
     )
-    return check["point_weight"] > 1e-8
+    return (check["point_weight"] > 1e-8,
+            torch.full((), -1, dtype=torch.int32, device=xyz.device))
 
 
 @torch.no_grad()
@@ -166,7 +169,7 @@ def prepare_visibility(params: dict, tree_arrays: dict, cam: dict, n_alive,
     )
     opacity = torch.sigmoid(params["opacity"][:, 0])
     R = n_roots if 0 < n_roots <= cap else cap
-    root_weight_ok = _check_root_weights(
+    root_weight_ok, _ = _check_root_weights(
         xyz[:R], opacity[:R], scaling[:R], rotation[:R], root_candidate[:R],
         cam, image_height, image_width, mode, backend, max_pairs, check_scale,
     )
@@ -385,7 +388,7 @@ def _slice_root_cull(params: dict, tree_arrays: dict, geo: dict, cam: dict,
     cand = (gm.frustum_flag_c(geo["rpx"][:R], geo["rpy"][:R], geo["rpz"][:R],
                               padding=0.5)
             & (tree_arrays["index_parent"][:R] == -1) & geo["alive"][:R])
-    weight_ok = _check_root_weights(
+    weight_ok, _ = _check_root_weights(
         params["xyz"][:R], opacity_r, scaling_r, rotation_r, cand, cam,
         image_height, image_width, mode, prep_backend, prep_max_pairs,
         check_scale,
@@ -646,7 +649,8 @@ def root_cull_stages(params: dict, tree_arrays: dict, cam: dict, n_alive,
 
       candidates: the root prefix's frustum test and activations ->
         "cand", "opacity", "scaling", "rotation";
-      check: the root weight render (K1 "weights") -> "weight_ok" (R,);
+      check: the root weight render (K1 "weights") -> "weight_ok" (R,),
+        "cull_pairs" (its unclamped pair demand, 0-d);
       expand: each row takes its root's verdict (`expand_weight_full`) ->
         "w_full" (cap_sort or cap,).
     """
@@ -666,7 +670,7 @@ def root_cull_stages(params: dict, tree_arrays: dict, cam: dict, n_alive,
         s["rotation"] = _normalize_rows(params["rotation"][:R])
 
     def check_stage(s):
-        s["weight_ok"] = _check_root_weights(
+        s["weight_ok"], s["cull_pairs"] = _check_root_weights(
             x, s["opacity"], s["scaling"], s["rotation"], s["cand"], cam,
             image_height, image_width, mode, prep_backend, prep_max_pairs,
             check_scale)

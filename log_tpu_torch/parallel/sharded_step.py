@@ -159,10 +159,10 @@ def _check_cull_one(full_phys, root_candidate, cam_mat, scalars,
     cam = {"world_view": cam_mat[0], "full_proj": cam_mat[1],
            "focal_x": focal_x, "focal_y": focal_y, "tan_fovx": tan_fovx,
            "tan_fovy": tan_fovy}
-    ok = _check_root_weights(xyz, opacity, scaling, rotation, root_candidate,
-                             cam, cfg.image_height, cfg.image_width, cfg.mode,
-                             cfg.prep_backend, cfg.prep_max_pairs,
-                             cfg.check_scale)
+    ok, _ = _check_root_weights(xyz, opacity, scaling, rotation,
+                                root_candidate, cam, cfg.image_height,
+                                cfg.image_width, cfg.mode, cfg.prep_backend,
+                                cfg.prep_max_pairs, cfg.check_scale)
     return root_candidate & ok
 
 

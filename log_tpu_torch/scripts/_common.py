@@ -162,16 +162,40 @@ def finite(tensors) -> bool:
     return True
 
 
+def frame_loop(frame, cull, cams, budget: int, frames: int,
+               cull_every: int, keep=None):
+    """One pass over the timed frames cams[2:2 + frames]; the cull (cull(cam)
+    -> w_full) runs before every cull_every-th frame. keep(image, counts)
+    is what the pass keeps of each frame (default: its counts). Returns
+    (the last image, [kept])."""
+    kept, w = [], None
+    for i in range(frames):
+        if i % cull_every == 0:
+            w = cull(cams[2 + i])
+        img, c = frame(cams[2 + i], w, budget)
+        kept.append(c if keep is None else keep(img, c))
+    return img, kept
+
+
 def honest_frames(frame, cull, cams, max_pairs: int, frames: int,
-                  cull_every: int, dev, hold=None, label: str = "frame"):
+                  cull_every: int, dev, hold=None, label: str = "frame",
+                  repeats: int = 1):
     """Times `frames` frames over cams[2:] after two warm-up frames (cams[0]
     and cams[1]); the cull (cull(cam) -> w_full) runs every cull_every
-    frames, before the frame. frame(cam, w_full, max_pairs) -> (image,
-    counts) with counts[2] the frame's unclamped pair demand. The first
-    warm-up frame and its cull run inside hold(label). Where a timed
+    frames, before the frame (`frame_loop`). frame(cam, w_full, max_pairs)
+    -> (image, counts) with counts[2] the frame's unclamped pair demand.
+    The first warm-up frame and its cull run inside hold(label). The pass
+    over the frames is timed `repeats` times, a synchronize before and
+    after each: ms_per_frame is the median pass, ms_per_frame_runs every
+    pass and ms_per_frame_spread (max - min) / median. Where a timed
     frame's demand passed the budget, the frames are timed again at
-    budget_for_demand(demand * REBUMP), up to TRIES times. Reports the last
-    timed frame's finiteness and spread."""
+    budget_for_demand(demand * REBUMP), up to TRIES times. Reports whether
+    every timed frame was finite, and the last one's finiteness and
+    spread."""
+    def keep_finite(img, counts):  # the counts, then the frame's finiteness
+        return torch.cat([counts.to(torch.int64),
+                          torch.isfinite(img).all().reshape(1).to(torch.int64)])
+
     budget = max_pairs
     for attempt in range(TRIES):
         if attempt:
@@ -182,32 +206,37 @@ def honest_frames(frame, cull, cams, max_pairs: int, frames: int,
             frame(cams[0], w0, budget)
         frame(cams[1], w0, budget)
         before = dict(kernels.LAUNCHES)
-        counts, w = [], w0
-        sync(dev)
-        t0 = time.perf_counter()
-        for i in range(frames):
-            if i % cull_every == 0:
-                w = cull(cams[2 + i])
-            img, c = frame(cams[2 + i], w, budget)
-            counts.append(c)
-        sync(dev)
-        dt = time.perf_counter() - t0
+        runs, counts = [], []
+        for _ in range(repeats):
+            sync(dev)
+            t0 = time.perf_counter()
+            img, kept = frame_loop(frame, cull, cams, budget, frames,
+                                   cull_every, keep_finite)
+            sync(dev)
+            runs.append((time.perf_counter() - t0) * 1e3 / frames)
+            counts += kept
         launched = launches_since(before)
-        c = torch.stack([x.to(torch.int64) for x in counts]).cpu().numpy()
+        c = torch.stack(counts).cpu().numpy()
         demand = int(c[:, 2].max())
         if demand <= budget:
             break
-    ms = dt * 1e3 / frames
+    ms = float(np.median(runs))
     return {
-        "ms_per_frame": ms, "fps": 1e3 / ms, "frames": frames,
+        "ms_per_frame": ms, "fps": 1e3 / ms, "ms_per_frame_runs": runs,
+        "ms_per_frame_spread": (max(runs) - min(runs)) / ms,
+        "frames": frames, "repeats": repeats,
         "cull_every": cull_every, "max_pairs": int(budget),
         "pairs_measured": demand,
-        "demand_per_frame": [int(x) for x in c[:, 2]],
-        "cut_per_frame": [int(x) for x in c[:, 0] + c[:, 1]],
+        "demand_per_frame": [int(x) for x in c[:frames, 2]],
+        "cut_per_frame": [int(x) for x in c[:frames, 0] + c[:frames, 1]],
+        # columns: the frame's counts, then its finiteness; the block
+        # frame's fourth count is its eligible blocks
+        "eligible_per_frame": ([int(x) for x in c[:frames, 3]]
+                               if c.shape[1] > 4 else None),
         "budget_overflow": demand > budget,
         "budget_rebumped": budget != max_pairs, "launches": launched,
         "image_finite": bool(torch.isfinite(img).all()),
-        "image_std": float(img.std()),
+        "images_finite": bool(c[:, -1].all()), "image_std": float(img.std()),
     }
 
 
@@ -335,22 +364,25 @@ PROFILE_PAD_S = 0.05  # idle host time at each end of a profiled window
 PROFILE_TRIES = 3
 
 
-def profiled(fn, reps: int, dev):
-    """(device ms per call, device kernel launches per call) of fn over reps
-    calls under torch.profiler: the time of every device record (copies
-    and fills included), the count of the kernels. None on the CPU. The
-    profiler keeps only the device records inside its window, so the calls
-    sit between two idle pads, and a window that holds no device record is
-    taken again, up to PROFILE_TRIES times (a stage that launches nothing
-    reads 0 after the last)."""
+def profiled(fn, reps: int, dev, top: int = 0):
+    """(device ms per call, device kernel launches per call, the `top`
+    device ops by time as [name, ms per call]) of fn over reps calls under
+    torch.profiler: the time of every device record (copies and fills
+    included), the count of the kernels. Nones on the CPU. The profiler
+    traces the device only: the host's ops would double the time it takes
+    to read the window (17 against 9 s for 30 frames of 1,700 launches on
+    an H100) and add no device record. It keeps only the device records
+    inside its window, so the calls sit between two idle pads, and a
+    window that holds no device record is taken again, up to
+    PROFILE_TRIES times (a stage that launches nothing reads 0 after the
+    last)."""
     if dev.type != "cuda":
-        return None, None
+        return None, None, None
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(PROFILE_TRIES):
         sync(dev)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_PAD_S)
             for _ in range(reps):
                 fn()
@@ -359,11 +391,16 @@ def profiled(fn, reps: int, dev):
         events = _device_events(prof)
         if events:
             break
-    us = sum(e.device_time_total if hasattr(e, "device_time_total")
-             else e.cuda_time_total for e in events)
+    by_name = {}
+    for e in events:
+        us = (e.device_time_total if hasattr(e, "device_time_total")
+              else e.cuda_time_total)
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
     n_kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
                     for e in events)
-    return us / 1e3 / reps, n_kernels / reps
+    ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return (sum(by_name.values()) / 1e3 / reps, n_kernels / reps,
+            [[name, us / 1e3 / reps] for name, us in ops])
 
 
 def count_syncs(fn, dev) -> int | None:
@@ -406,7 +443,7 @@ def time_stage(name: str, fn, reps: int, dev, warmup: int = 1) -> dict:
         sync(dev)
         ms.append((time.perf_counter() - t0) * 1e3)
     launched = {k: v / reps for k, v in launches_since(before).items() if v}
-    device_ms, n_dev = profiled(fn, reps, dev)
+    device_ms, n_dev, _ = profiled(fn, reps, dev)
     syncs = count_syncs(fn, dev)
     reset_peak(dev)
     fn()

@@ -254,8 +254,11 @@ def build_scene(n_roots: int, generator: torch.Generator, device=None):
     return params, tree
 
 
-def checkpoint_scene(ckpt: dict, device="cpu"):
-    """build_checkpoint's points as pad_scene's (params, tree) input."""
+def checkpoint_scene(ckpt: dict, device=None):
+    """build_checkpoint's points as pad_scene's (params, tree) input, on the
+    card unless the caller passes device="cpu"."""
+    device = torch.device("cuda" if device is None else device)
+
     def t(a):
         return torch.as_tensor(np.asarray(a)).to(device)
 

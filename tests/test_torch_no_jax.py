@@ -1,8 +1,8 @@
 """log_tpu_torch must stand without JAX: the GPU machine has none.
 
-The scripts (scale, dissection and probe scripts) and the stage and scene
-functions they call are named explicitly, so that a renamed or missing one
-fails here.
+The scripts (scale, dissection and probe scripts, and the benchmark) and
+the stage and scene functions they call are named explicitly, so that a
+renamed or missing one fails here.
 
 Every module of the package is imported in a fresh interpreter, which must
 then hold neither `jax` nor `log_tpu` in sys.modules, nor the optional host
@@ -50,10 +50,19 @@ def test_package_imports_without_jax():
                  "scripts.bench_explore", "scripts.bench_sortcost",
                  "scripts.bench_gathercost", "scripts.bench_blockgather",
                  "scripts.backend_equivalence",
-                 "scripts.check_sharded_fullscale"):
+                 "scripts.check_sharded_fullscale", "scripts.bench"):
         assert f"log_tpu_torch.{name}" in names
     from log_tpu_torch.model import train_step
+    from log_tpu_torch.scripts import _common, bench
     from log_tpu_torch.utils import synth_tree
+
+    for fn in ("run", "main", "find_min_res_for_cut", "fused_cell",
+               "block_cell", "block_cache", "timed_cell", "memory",
+               "n_roots_bucket", "cap_sort_for", "k_vis_for", "fused_budget",
+               "block_budget", "k_blocks_for"):
+        assert callable(getattr(bench, fn))
+    for fn in ("frame_loop", "honest_frames", "profiled", "count_syncs"):
+        assert callable(getattr(_common, fn))
 
     for fn in ("build_scene", "pad_scene", "checkpoint_scene", "scene_tree"):
         assert callable(getattr(synth_tree, fn))

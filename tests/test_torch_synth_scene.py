@@ -183,7 +183,8 @@ def test_checkpoint_scene_frame_equals_the_optimized_model(pack_pairs):
     model.eval()
     model.optimize_render_layout()
     cap = model.capacity
-    p, t, leaf = pad_scene(*checkpoint_scene(ckpt), cap, "root_major")
+    p, t, leaf = pad_scene(*checkpoint_scene(ckpt, "cpu"), cap,
+                           "root_major")
     pc = camera_device(_camera(2.1), "cpu")
     kw = dict(_frame_kw(n, cap), pack_pairs=pack_pairs)
     want = ts.fused_prepare_render(
