@@ -2,8 +2,12 @@
 """Smoke run of the PyTorch + CUDA port (log_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --only multi
 
-Needs a CUDA device and nvcc; exits non-zero without them. Phases:
+Needs a CUDA device and nvcc; exits non-zero without them. `--only multi`
+runs the header and the kernel build, then only the multi-card phases of
+14 (multi_rank_phase, on the training snapshot of 6), and fails with fewer
+than two cards. Phases:
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the kernel build from log_tpu_torch/csrc (nvcc, sm_90a);
@@ -145,9 +149,36 @@ Needs a CUDA device and nvcc; exits non-zero without them. Phases:
    and every step's kept counts equal; step 0's kernel calls (K1 in both
    modes, K3, K4, K2) held against the plain versions; the step median
    beside the single-card median, the peak, launches per step and the
-   bytes handed to each collective per step. With 2+ cards, min(count, 4)
-   NCCL ranks (parallel/launch.py) of one camera against one rank of that
-   many cameras; with one card the script says so;
+   bytes handed to each collective per step. Then multi_rank_phase: with
+   2+ cards (its json entry multi_card; with one card it logs that it did
+   not run, and why), n = min(count, 4) NCCL ranks (parallel/launch.py,
+   the kernel library built once before they start) after a probe of
+   their group, the link between the cards from nvidia-smi (topo -m,
+   else nvlink --status):
+   a. step: MULTI_RANK_STEPS steps of one camera a rank through
+      ShardedExecutor.step against one rank of n cameras on the same
+      batches (params, unit quaternions, moments and losses at
+      MULTI_RANK_TOL, visible_count, area_sum and the kept counts exact)
+      and against the single-card step (ms and cameras per second); every
+      rank's step 0 kernel calls held against the plain versions; per
+      rank the step ms, peak memory, bytes per collective, and, over
+      MULTI_PROFILE_STEPS more steps under the profiler, the device time,
+      busy share and the NCCL kernels' time and share; the check cull's
+      gather timed alone;
+   b. densify: a depth densify (the device path) on every rank, then
+      refresh_from_model, which checks that the ranks' models agree bit
+      for bit, and one step after it;
+   c. band render: 15's frames on the n ranks, each rank's frame 0 kernel
+      calls held, the bytes each rank hands to the exchange;
+   d. the 10.26M-point tree of bench_capacity built on every rank from
+      the seed, MULTI_CAPACITY_STEPS steps (ms and peak per rank);
+   e. check_sharded_fullscale at n NCCL ranks with K1: the exchange-length
+      matrix, pairs exchanged against the single-card demand, overflow 0;
+   f. the CLI: config/synthetic_parallel through log_tpu_torch.apps.train
+      under torch.distributed.run at n ranks of one camera and at one rank
+      of n cameras, final_val of each (at least MULTI_CLI_FINAL), their
+      first MULTI_CLI_LOSS_STEPS losses within MULTI_RANK_TOL's loss
+      bound, the launches per step;
 15. sharded_render: the trained tree in the strided layout over the
    serving orbit at one rank, at SH 1 (slices, K3) and SH 0 (columns, K4 +
    K3p), every frame held against the single-card flat_slice frame
@@ -441,14 +472,41 @@ CLI_DEPTH_RANGES = {"depth": (2.0, 6.0), "height": (-1.0, 1.0)}
 # through prepare_from_camera + LoG.train_step, SHARDED_STEPS steps each;
 # held at tests/test_parallel.py's single-chip tolerances (params, unit
 # quaternions, moments, float counters) with the integer counters and the
-# kept counts equal. Where the machine has 2+ cards, min(count, 4) ranks of
-# one camera for MULTI_RANK_STEPS steps against one rank of that many
-# cameras, at test_sharded_n1_equals_n4's tolerances
-SHARDED_STEPS, MULTI_RANK_STEPS = 12, 4
+# kept counts equal. Where the machine has 2+ cards (multi_rank_phase),
+# min(count, 4) NCCL ranks of one camera for MULTI_RANK_STEPS steps against
+# one rank of that many cameras, at test_sharded_n1_equals_n4's tolerances
+# (moments at the parameters' relative one: the slice exchange sums rows
+# that one rank owns, so only the order of the gradient scatter's float
+# sums differs), visible_count and area_sum exact
+SHARDED_STEPS, MULTI_RANK_STEPS = 12, 8
 SHARDED_TOL = {"params": (2e-4, 2e-5), "rotation": (1e-3, 2e-4),
                "moments": (2e-3, 1e-7), "counters": (2e-3, 1e-5)}
 MULTI_RANK_TOL = {"params": (1e-4, 1e-6), "rotation": (1e-3, 2e-4),
-                  "loss": 1e-5}
+                  "moments": (1e-4, 1e-7), "loss": 1e-5}
+# multi_rank_phase, after the steps: MULTI_PROFILE_STEPS more under the
+# profiler (the NCCL kernels' device time), the check cull's gather timed
+# alone (MULTI_GATHER_REPS), a depth densify whose refresh checks the
+# ranks' models bit for bit, one step after it, and the band render; then
+# MULTI_CAPACITY_STEPS steps of bench_capacity's 10.26M-point tree (each
+# rank builds it from the seed) at min_res MULTI_CAPACITY_MIN_RES;
+# check_sharded_fullscale on NCCL ranks with K1 (MULTI_FULLSCALE_FRAMES);
+# the CLI under torchrun at n ranks of one camera and at one rank of n
+# (MULTI_CLI_*: config/synthetic_parallel on a scene made by the port's
+# make_synthetic_scene), the first MULTI_CLI_LOSS_STEPS losses of the two
+# within MULTI_RANK_TOL["loss"], each final-val in the class of PERF.md
+MULTI_PROFILE_STEPS, MULTI_GATHER_REPS = 2, 5
+MULTI_CAPACITY_ROOTS, MULTI_CAPACITY_STEPS = 1_900_000, 2
+MULTI_CAPACITY_MIN_RES = 96.0
+MULTI_FULLSCALE_FRAMES = 8
+MULTI_TIMEOUT_S, MULTI_PROBE_TIMEOUT_S = 600, 120
+MULTI_CLI_SCENE = "output/chip_multi_scene"
+# config/synthetic_conv's scene (cli phase): on config/synthetic's
+# 200-Gaussian 120x160 scene one rank of 4 cameras ends at 17.6 dB / 0.43
+# SSIM, under the class of PERF.md; on this one at 25.6 dB / 0.82
+MULTI_CLI_SCENE_ARGS = [MULTI_CLI_SCENE, "20000", "36", "256", "320", ".png"]
+MULTI_CLI_EXP = "output/chip_multi_{}/log"
+MULTI_CLI_LOSS_STEPS = 8
+MULTI_CLI_FINAL = (20.0, 0.8)  # final-val PSNR (dB) and SSIM, at least
 SHARDED_EXACT = ("visible_count", "create_steps", "area_sum")
 SHARDED_CLOSE = ("weights_max", "weights_sum", "grad_sum")
 # sharded_render: the same tree in the strided layout over the serving
@@ -3225,28 +3283,454 @@ def sharded_step_phase(snapshot, batches, device, log):
             launches, errs, held_rows, model, failures)
 
 
-def _multi_rank_main(rank, world, device, path):
-    """One rank of the multi-card run: the snapshot at `path`, MULTI_RANK
-    steps of one camera. Returns the losses and, on rank 0, the state."""
-    import pickle
+def link_matrix(log):
+    """The link between the cards: the kinds `nvidia-smi topo -m` prints
+    (NV# for NVLink; PIX, PXB, PHB, NODE, SYS for PCIe and host bridges),
+    else card 0's active links from `nvidia-smi nvlink --status`, and
+    whether every card reaches every other's memory (P2P). Returns (link,
+    details)."""
+    import re
+
+    import torch
+
+    def smi(*args):
+        res = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                             text=True)
+        text = (res.stdout if res.returncode == 0 else res.stderr) or ""
+        for line in text.splitlines():
+            log(f"  nvidia-smi {' '.join(args)}: {line.rstrip()}")
+        return res.returncode, text
+
+    rc, topo = smi("topo", "-m")
+    kinds = sorted({k for ln in topo.splitlines() if ln.startswith("GPU")
+                    for k in re.findall(r"\b(NV\d+|PIX|PXB|PHB|NODE|SYS)\b",
+                                        ln)}) if rc == 0 else []
+    rc, nvl = smi("nvlink", "--status", "-i", "0")
+    rates = re.findall(r"Link \d+: ([\d.]+) GB/s", nvl) if rc == 0 else []
+    n = torch.cuda.device_count()
+    p2p = all(torch.cuda.can_device_access_peer(i, j)
+              for i in range(n) for j in range(n) if i != j)
+    if any(k.startswith("NV") for k in kinds) or rates:
+        link = "NVLink"
+    elif kinds:
+        link = "/".join(kinds)
+    else:
+        link = "P2P, kind unknown" if p2p else "unknown"
+    return link, {"topo_kinds": kinds, "card0_nvlinks_gb_per_s": rates,
+                  "p2p": p2p}
+
+
+def band_sizes(max_cut, max_demand, cap, n):
+    """(k_local, pair budget, bucket) of the band render at n ranks from the
+    single-card frames' largest cut and pair demand: a rank's share with
+    headroom (1.1 at one rank; 1.5 where the rows split, for the ranks'
+    unequal shares), k_local a multiple of 32,768 (the column flow's K3p),
+    the (src, dst) bucket three times the mean exchange length
+    (scripts/check_sharded_fullscale.py's rule) and at most the rank's
+    pair budget."""
+    from log_tpu_torch.ops import budget_for_demand
+
+    room = 1.1 if n == 1 else 1.5
+    k_local = min(-(-int(max_cut * room / n) // 32768) * 32768, cap // n)
+    pairs = -(-budget_for_demand(int(max_demand * room / n)) // 512) * 512
+    bucket = min(pairs, budget_for_demand(int(3 * max_demand / n ** 2)))
+    return k_local, pairs, bucket
+
+
+def _nccl_probe(rank, world, device):
+    """One all_reduce and one all_gather in the ranks' group: the group
+    forms and its collectives cross the cards."""
+    import torch
 
     from log_tpu_torch.parallel.comm import Comm
 
+    comm = Comm()
+    x = torch.full((4,), float(rank + 1), device=device)
+    total = comm.psum(x)
+    every = comm.all_gather(x, tiled=False)
+    return {"rank": rank, "device": str(device),
+            "backend": torch.distributed.get_backend(),
+            "psum": total.tolist(), "gathered": every[:, 0].tolist()}
+
+
+def _rank_log(rank, world):
+    def log(msg):
+        print(f"[rank {rank}/{world}] {msg}", flush=True)
+    return log
+
+
+def _multi_card_rank(rank, world, device, path):
+    """One NCCL rank of multi_rank_phase (parallel/launch.spawn). From the
+    pickle at `path` (the training snapshot, the views, and the one-rank
+    run of `world` cameras a step: its state, losses and kept counts):
+    MULTI_RANK_STEPS steps of one camera through ShardedExecutor.step,
+    step 0's kernel calls held against the plain versions, the result held
+    on rank 0 against the one-rank run; MULTI_PROFILE_STEPS more under the
+    profiler; the check cull's gather timed alone; a depth densify on every
+    rank (the device path), whose refresh_from_model checks the ranks'
+    models bit for bit, and one step after it; then the band render at SH
+    1 and 0 (sharded_render_phase). Returns a dict of this rank's numbers,
+    launches, held errors, held rows and failures."""
+    import pickle
+
+    import torch
+
+    from log_tpu_torch.model.train_step import _normalize_rows
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.parallel.comm import Comm
+    from log_tpu_torch.scripts import _common as C
+
+    log = _rank_log(rank, world)
+    dev = torch.device(device)
+    failures, held_rows, launches = [], {}, {}
     with open(path, "rb") as f:
-        snapshot, views = pickle.load(f)
+        snapshot, views, ref = pickle.load(f)
+    comm = Comm()
     model = train_twin(snapshot, device)
-    ex, rows = _sharded_run(model, views, MULTI_RANK_STEPS, 1, Comm())
+    del snapshot
+    calls = {}
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ex, rows = _sharded_run(model, views, MULTI_RANK_STEPS, 1, comm, calls)
+    launches["multi_step"] = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    errs, f = hold_calls(calls, f"rank {rank} multi_step step 0", log,
+                         held_rows)
+    failures += f
+    del calls
+    uneven = [r["step"] for r in rows if r["ran"]["rasterize_bwd"] != 1
+              or min(r["ran"][k] for k in ("rasterize_fwd", "expand_with_keys",
+                                           "pack_rows")) < 2]
+    if uneven:
+        failures.append(f"multi_step rank {rank}: steps without K2 once and "
+                        f"K1, K3, K4 at least twice: {uneven}")
+    out = {"rank": rank, "device": str(dev),
+           "ms": [r["ms"] for r in rows], "losses": [r["loss"] for r in rows],
+           "peak_bytes": peak,
+           "bytes_per_step": {k: sum(r["bytes"].get(k, 0) for r in rows[1:])
+                              / (len(rows) - 1) for k in rows[-1]["bytes"]}}
     ex.sync_to_model()
-    return {"losses": [r["loss"] for r in rows],
-            "ms": [r["ms"] for r in rows],
-            "state": snapshot_of(model) if rank == 0 else None}
+    if rank == 0:
+        got = snapshot_of(model)
+        out["worst_abs_diff"], fails = hold_states(
+            ref["state"], got, MULTI_RANK_TOL,
+            f"{world} ranks x 1 camera vs 1 rank x {world}", log)
+        failures += fails
+        for key in ("counter.visible_count", "counter.area_sum"):
+            if not np.array_equal(ref["state"][key], got[key]):
+                failures.append(f"multi_step: {key} differs from the "
+                                f"one-rank run's")
+        del got
+        if not np.allclose(out["losses"], ref["losses"],
+                           rtol=MULTI_RANK_TOL["loss"]):
+            failures.append(f"multi_step: losses {out['losses']} vs the "
+                            f"one-rank run's {ref['losses']}")
+        counts = [r["counts"] for r in rows]
+        out["counts_equal"] = counts == ref["counts"]
+        if not out["counts_equal"]:
+            failures.append(f"multi_step: kept counts {counts} vs the "
+                            f"one-rank run's {ref['counts']}")
+
+    # the profiler over more steps: device time, the NCCL kernels' share;
+    # the ranks start it together (rank 0 has just compared on the host)
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    B = ex.batch
+    nxt = [MULTI_RANK_STEPS]
+
+    def one_step():
+        s = nxt[0]
+        nxt[0] += 1
+        sel = [(s * B + j) % len(views) for j in range(B)]
+        ex.step([views[i][0] for i in sel], [views[i][1] for i in sel],
+                view_indices=[i % TRAIN_VIEWS for i in sel],
+                backgrounds=[np.zeros(3, np.float32)] * B)
+
+    dev_ms, dev_launches, ops = C.profiled(one_step, MULTI_PROFILE_STEPS, dev,
+                                           top=1 << 20)
+    nccl = [(name, ms) for name, ms in ops if name.lower().startswith("nccl")]
+    host_ms = float(np.median(out["ms"][1:]))
+    out["profile"] = {
+        "steps": MULTI_PROFILE_STEPS, "device_ms": dev_ms,
+        "device_launches": dev_launches, "host_ms_median": host_ms,
+        "busy": dev_ms / host_ms, "nccl_ms": sum(ms for _, ms in nccl),
+        "nccl_share": sum(ms for _, ms in nccl) / host_ms,
+        "nccl_kernels": nccl, "top": ops[:8]}
+
+    # the check cull's gather alone: the physical columns of the local rows
+    col = ex.meta["col_of"]
+    p = ex.packed
+    parts = (p[:, col["xyz"][0]:col["xyz"][1]].contiguous(),
+             torch.exp(p[:, col["scaling"][0]:col["scaling"][1]]),
+             _normalize_rows(p[:, col["rotation"][0]:col["rotation"][1]]),
+             torch.sigmoid(p[:, col["opacity"][0]]))
+    gather_ms = device_ms(lambda: [comm.all_gather(a) for a in parts],
+                          MULTI_GATHER_REPS)
+    sent = sum(a.numel() * a.element_size() for a in parts)
+    out["cull_gather"] = {"ms": gather_ms, "bytes_handed_in": sent,
+                          "bytes_gathered": sent * world,
+                          "gb_per_s": sent * world / gather_ms / 1e6}
+    del parts
+
+    # a depth densify on every rank, then the refresh's bit-for-bit check
+    d = model.densify_and_remove
+    model.set_state(current_depth=20)  # what upgrade_tree sets
+    d["min_steps_split"] = 0
+    d["device_densify"] = "on"
+    ex.sync_to_model()
+    n0, c0 = model.num_points, model.capacity
+    _, dens_s = timed(lambda: model.update_depth_stage(nxt[0]))
+    agree = True
+    try:
+        ex.refresh_from_model()
+    except RuntimeError as e:
+        agree = False
+        failures.append(f"multi_densify: {e}")
+    out["densify"] = {"points": [n0, model.num_points],
+                      "capacity": [c0, model.capacity], "s": dens_s,
+                      "ranks_agree": agree}
+    if model.num_points == n0:
+        failures.append("multi_densify: nothing changed")
+    if agree:
+        kernels.reset_launches()
+        _, sec = timed(one_step)
+        out["densify"]["step_after_ms"] = sec * 1e3
+        launches["multi_step_after_densify"] = dict(kernels.LAUNCHES)
+        ex.sync_to_model()
+    log(f"multi_densify: {n0} -> {model.num_points} points, capacity {c0} "
+        f"-> {model.capacity}, {dens_s:.3f} s; ranks agree {agree}")
+    del ex
+    torch.cuda.empty_cache()
+
+    render, r_launches, r_errs, r_rows, r_fail = sharded_render_phase(
+        model, device, log, comm, "multi_render")
+    failures += r_fail
+    launches.update(r_launches)
+    for k, v in r_errs.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    for k, v in r_rows.items():
+        held_rows.setdefault(k, []).extend(v)
+    out["render"] = render
+    out.update(launches=launches, errs=errs, failures=failures,
+               held_rows=held_rows if rank == 0 else {})
+    return out
+
+
+def capacity_views(n, h=H, w=W, focal=1400.0):
+    """n host cameras of bench_capacity's orbit (radius 22, height 18) and
+    a random 8-bit GT each, from the seed."""
+    from log_tpu_torch.dataset.base import prepare_camera
+
+    rng = np.random.default_rng(SEED)
+    return [({k: np.asarray(v) for k, v in prepare_camera(
+        make_cam(2 * math.pi * i / n, h=h, w=w, focal=focal), 1, 0.01,
+        1000.0).items() if k in CAMERA_KEYS},
+        rng.integers(0, 256, (3, h, w), dtype=np.uint8)) for i in range(n)]
+
+
+def _multi_capacity_rank(rank, world, device):
+    """One NCCL rank of the 10.26M-point step: bench_capacity's tree
+    (MULTI_CAPACITY_ROOTS roots, capacity 12,582,912) built on this rank's
+    card from the seed (not sent: the pickle would be ~3 GB), zero moments;
+    the executor's refresh checks that every rank built the same tree; then
+    MULTI_CAPACITY_STEPS steps of one camera a rank at min_res
+    MULTI_CAPACITY_MIN_RES. Returns ms, peak, kept counts, losses."""
+    import torch
+
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.parallel.comm import Comm
+    from log_tpu_torch.parallel.executor import ShardedExecutor
+
+    log = _rank_log(rank, world)
+    (model, build_s) = timed(lambda: build_train_model(
+        device, n_roots=MULTI_CAPACITY_ROOTS))
+    views = capacity_views(world)
+    torch.cuda.reset_peak_memory_stats()
+    ex = ShardedExecutor(model, backend="tiled", check_cull=True,
+                         comm=Comm())  # checks that the ranks agree
+    kernels.reset_launches()
+    rows = []
+    for s in range(MULTI_CAPACITY_STEPS):
+        (met, counts), sec = timed(lambda: ex.step(
+            [v[0] for v in views], [v[1] for v in views],
+            backgrounds=[np.zeros(3, np.float32)] * world,
+            min_res=[MULTI_CAPACITY_MIN_RES] * world))
+        rows.append({"ms": sec * 1e3, "loss": float(met["loss"]),
+                     "counts": counts.tolist()})
+    ran = dict(kernels.LAUNCHES)
+    if ran["rasterize_bwd"] != MULTI_CAPACITY_STEPS or min(
+            ran[k] for k in STEP_KERNELS) < MULTI_CAPACITY_STEPS:
+        raise RuntimeError(f"multi_capacity rank {rank}: launches {ran} in "
+                           f"{MULTI_CAPACITY_STEPS} steps")
+    out = {"rank": rank, "points": model.num_points,
+           "capacity": model.capacity, "build_s": build_s, "steps": rows,
+           "bucket": list(ex._bucket),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": ran}
+    log(f"multi_capacity: {model.num_points} points, capacity "
+        f"{model.capacity}, step ms {[round(r['ms'], 1) for r in rows]}, "
+        f"peak {out['peak_bytes'] / 2**30:.3f} GiB")
+    return out
+
+
+def torchrun_cli_main(argv):
+    """`chip_smoke.py --torchrun-cli OUT <train argv>` as a rank of
+    torch.distributed.run: log_tpu_torch.apps.train.main(<train argv>), the
+    CLI's own entry, with each training step's kernel launches counted and
+    the first MULTI_CLI_LOSS_STEPS losses read; OUT.<rank>.json gets them,
+    the wall time, the steps and the final point count."""
+    import os
+
+    from log_tpu_torch.apps import train
+    from log_tpu_torch.ops import kernels
+    from log_tpu_torch.utils.trainer import Trainer
+
+    out_prefix, args = argv[0], argv[1:]
+    losses, step_launches = [], {k: 0 for k in kernels.LAUNCHES}
+    real_step = Trainer.training_step
+
+    def step(self, model, data):
+        before = dict(kernels.LAUNCHES)
+        res = real_step(self, model, data)
+        for k in step_launches:
+            step_launches[k] += kernels.LAUNCHES[k] - before[k]
+        if len(losses) < MULTI_CLI_LOSS_STEPS:
+            losses.append(float(res[1]["metrics"]["loss"]))
+        step.n += 1
+        return res
+    step.n = 0
+
+    t0 = time.perf_counter()
+    with patched(Trainer, {"training_step": step}):
+        trainer = train.main(args)
+    wall = time.perf_counter() - t0
+    rank = int(os.environ.get("RANK", "0"))
+    rec = {"rank": rank, "world": int(os.environ.get("WORLD_SIZE", "1")),
+           "wall_s": wall, "steps": step.n, "losses": losses,
+           "points": trainer.model.num_points,
+           "batch": trainer.executor.batch if trainer.executor else None,
+           "step_launches": step_launches}
+    with open(f"{out_prefix}.{rank}.json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def multi_cli_phase(n, log):
+    """The scene (MULTI_CLI_SCENE_ARGS) made by the port's
+    make_synthetic_scene, then config/synthetic_parallel through the CLI
+    under torch.distributed.run: n ranks of one camera, and one rank of n
+    cameras (train.parallel.cams_per_device n), each rank calling
+    log_tpu_torch.apps.train.main through torchrun_cli_main; final_val of
+    each run's checkpoint in this process. Returns (json, launches by run,
+    steps by run, failures)."""
+    import glob
+    import os
+    import shutil
+
+    from log_tpu_torch.apps import final_val, make_synthetic_scene
+
+    failures, out, launches, n_steps = [], {}, {}, {}
+    shutil.rmtree(MULTI_CLI_SCENE, ignore_errors=True)
+    _, out["scene_s"] = timed(lambda: make_synthetic_scene.main(
+        MULTI_CLI_SCENE_ARGS))
+    nccl_env = {k: v for k, v in os.environ.items() if k.startswith("NCCL_")}
+    log(f"multi_cli: NCCL environment at launch {nccl_env or 'none set'}")
+    for nproc, cams in ((n, 1), (1, n)):
+        mode = f"{nproc}x{cams}"
+        exp = MULTI_CLI_EXP.format(mode)
+        shutil.rmtree(os.path.dirname(exp), ignore_errors=True)
+        opts = ["root", MULTI_CLI_SCENE, "PLYNAME",
+                MULTI_CLI_SCENE + "/sparse/0/sparse.npz", "exp", exp,
+                "dataset.args.ext", ".png", "val_dataset.args.ext", ".png"]
+        prefix = os.path.join("output", f"chip_multi_cli_{mode}")
+        for old in glob.glob(prefix + ".*.json"):
+            os.remove(old)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(nproc), "chip_smoke.py",
+               "--torchrun-cli", prefix, "--cfg", CLI_PAR_CFG, "split",
+               "train", *opts, "train.parallel.enable", "on",
+               "train.parallel.cams_per_device", str(cams)]
+        log("multi_cli: " + " ".join(cmd))
+        t0 = time.perf_counter()
+        with open(prefix + ".log", "w") as f:
+            rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                timeout=MULTI_TIMEOUT_S).returncode
+        wall = time.perf_counter() - t0
+        ranks = []
+        for path in sorted(glob.glob(prefix + ".*.json")):
+            with open(path) as f:
+                ranks.append(json.load(f))
+        if rc != 0 or len(ranks) != nproc:
+            with open(prefix + ".log") as f:
+                tail = f.read()[-3000:]
+            failures.append(f"multi_cli {mode}: rc {rc}, {len(ranks)} of "
+                            f"{nproc} ranks reported; log tail:\n{tail}")
+            continue
+        record, fv_s = timed(lambda: final_val.main(
+            [CLI_PAR_CFG, os.path.join(exp, "model_tree.pth")] + opts))
+        r0 = ranks[0]
+        out[mode] = {"ranks": nproc, "cams_per_device": cams,
+                     "command_s": wall, "train_s": [r["wall_s"] for r in ranks],
+                     "steps": r0["steps"], "batch": r0["batch"],
+                     "points": [r["points"] for r in ranks],
+                     "losses": r0["losses"], "final_val_s": fv_s,
+                     "final_val": {k: record[k] for k in CLI_VAL_KEYS},
+                     "launches_per_step": {
+                         k: v / max(r0["steps"], 1)
+                         for k, v in r0["step_launches"].items()}}
+        launches[f"multi_cli_{mode}"] = r0["step_launches"]
+        n_steps[f"multi_cli_{mode}"] = r0["steps"]
+        fv = out[mode]["final_val"]
+        log(f"multi_cli {mode}: {r0['steps']} steps of {r0['batch']} "
+            f"cameras, command {wall:.2f} s (train {r0['wall_s']:.2f} s on "
+            f"rank 0), points {out[mode]['points']}, final_val {fv} in "
+            f"{fv_s:.2f} s; launches per step {out[mode]['launches_per_step']}"
+            f"; losses {r0['losses']}")
+        if fv["psnr"] < MULTI_CLI_FINAL[0] or fv["ssim"] < MULTI_CLI_FINAL[1]:
+            failures.append(f"multi_cli {mode}: final-val {fv['psnr']:.3f} dB"
+                            f" / {fv['ssim']:.4f} under {MULTI_CLI_FINAL}")
+        if len({r["points"] for r in ranks}) != 1:
+            failures.append(f"multi_cli {mode}: the ranks end with "
+                            f"{[r['points'] for r in ranks]} points")
+        if min(r0["step_launches"][k] for k in STEP_KERNELS) < r0["steps"]:
+            failures.append(f"multi_cli {mode}: launches "
+                            f"{r0['step_launches']} in {r0['steps']} steps")
+    many, one = out.get(f"{n}x1"), out.get(f"1x{n}")
+    if many and one:
+        if not np.allclose(many["losses"], one["losses"],
+                           rtol=MULTI_RANK_TOL["loss"]):
+            failures.append(f"multi_cli: the first losses {many['losses']} "
+                            f"at {n} ranks vs {one['losses']} at one rank")
+        if many["steps"] != one["steps"]:
+            failures.append(f"multi_cli: {many['steps']} steps at {n} ranks "
+                            f"vs {one['steps']} at one rank")
+    return out, launches, n_steps, failures
+
+
+def _subphase(name, fn, failures, log):
+    """fn() with its exception turned into a failure (and its traceback
+    printed), so that the phases after it still run; None where it
+    raised."""
+    import traceback
+
+    try:
+        return fn()
+    except Exception:
+        log(f"{name} raised:\n{traceback.format_exc()}")
+        failures.append(f"{name} raised (traceback above)")
+        return None
 
 
 def multi_rank_phase(snapshot, batches, device, log):
-    """Where the machine has two cards or more: min(count, 4) NCCL ranks
-    (parallel/launch.py), one camera each, MULTI_RANK_STEPS steps, against
-    one rank of that many cameras on the same batches (this process's
-    group). Returns (json, failures)."""
+    """Where the machine has two cards or more, n = min(count, 4) NCCL
+    ranks (parallel/launch.py, the kernel library built once before they
+    start): the training step of one camera a rank against one rank of n
+    cameras (this process, a one-rank group) on the same batches and
+    against the single-card step, with the densify and band render of
+    _multi_card_rank; the 10.26M-point step (_multi_capacity_rank);
+    check_sharded_fullscale with K1 on NCCL ranks; the CLI under torchrun
+    (multi_cli_phase). With one card it says so. Returns (json, launches
+    by run, calls by run, held errors, held rows, failures)."""
     import os
     import pickle
 
@@ -3254,63 +3738,183 @@ def multi_rank_phase(snapshot, batches, device, log):
 
     from log_tpu_torch.parallel.comm import Comm
     from log_tpu_torch.parallel.launch import spawn
+    from log_tpu_torch.scripts import check_sharded_fullscale
 
     cards = torch.cuda.device_count()
     if cards < 2:
-        log(f"sharded_step multi-rank: needs two cards, found {cards}")
-        return {"cards": cards, "ran": False}, []
+        why = f"needs two cards, found {cards}"
+        log(f"multi_card: the multi-card phases did not run: {why}")
+        return {"cards": cards, "ran": False, "why": why}, {}, {}, {}, {}, []
     n = min(cards, 4)
+    failures, launches, n_calls, errs, rows = [], {}, {}, {}, {}
+    link, link_details = link_matrix(log)
+    out = {"cards": cards, "ran": True, "ranks": n, "link": link,
+           "link_details": link_details,
+           "names": [torch.cuda.get_device_name(i) for i in range(n)]}
+    log(f"multi_card: {n} NCCL ranks on {cards} cards, link {link}")
+    probe = _subphase("multi_probe", lambda: spawn(
+        _nccl_probe, n, "cuda", timeout_s=MULTI_PROBE_TIMEOUT_S),
+        failures, log)
+    out["probe"] = probe
+    want = [float(n * (n + 1) // 2)] * 4
+    if probe is None or any(r["psum"] != want for r in probe):
+        failures.append(f"multi_probe: the {n}-rank group did not form or "
+                        f"its collectives disagree: {probe}")
+        return out, launches, n_calls, errs, rows, failures
+    log(f"multi_probe: {probe}")
     views = step_views(batches)
+
+    # one rank of n cameras, and the single-card step, on the same batches
+    def one_rank():
+        with one_rank_group(log):
+            model = train_twin(snapshot, device)
+            ex, ref_rows = _sharded_run(model, views, MULTI_RANK_STEPS, n,
+                                        Comm())
+            ex.sync_to_model()
+            state = snapshot_of(model)
+        del ex, model
+        torch.cuda.empty_cache()
+        single = train_twin(snapshot, device)
+        bg = np.zeros(3, np.float32)
+        single_ms = []
+        for s in range(MULTI_RANK_STEPS * n):
+            camera, gt = views[s % len(views)]
+
+            def one():
+                single.prepare_from_camera(camera)
+                single.train_step(camera, gt, bg, view_index=s % TRAIN_VIEWS)
+            single_ms.append(timed(one)[1] * 1e3)
+        del single
+        torch.cuda.empty_cache()
+        return ref_rows, state, single_ms
+
+    res = _subphase("multi_card one rank", one_rank, failures, log)
+    if res is None:
+        return out, launches, n_calls, errs, rows, failures
+    ref_rows, state, single_ms = res
+    one_ms = float(np.median([r["ms"] for r in ref_rows[1:]]))
+    single_med = float(np.median(single_ms[1:]))
+    out["one_rank"] = {"cams": n, "ms": [r["ms"] for r in ref_rows],
+                       "ms_median": one_ms, "cams_per_s": n * 1e3 / one_ms,
+                       "losses": [r["loss"] for r in ref_rows]}
+    out["single_card"] = {"ms": single_ms, "ms_median": single_med,
+                          "cams_per_s": 1e3 / single_med}
     path = os.path.join("build", "chip_smoke_multi_rank.pkl")
     os.makedirs("build", exist_ok=True)
     with open(path, "wb") as f:
-        pickle.dump((snapshot, views), f)
+        pickle.dump((snapshot, views, {
+            "state": state, "losses": out["one_rank"]["losses"],
+            "counts": [r["counts"] for r in ref_rows]}), f)
+    del state
     try:
-        (ranks, sec) = timed(lambda: spawn(_multi_rank_main, n, "cuda",
-                                           args=(path,), timeout_s=900))
+        ranks, sec = timed(lambda: spawn(_multi_card_rank, n, "cuda",
+                                         args=(path,),
+                                         timeout_s=MULTI_TIMEOUT_S))
+    except RuntimeError as e:
+        ranks = None
+        failures.append(f"multi_step: {e}")
     finally:
         os.remove(path)
-    model = train_twin(snapshot, device)
-    ex, rows = _sharded_run(model, views, MULTI_RANK_STEPS, n, Comm())
-    ex.sync_to_model()
-    want = snapshot_of(model)
-    del ex, model
-    torch.cuda.empty_cache()
-    losses = [r["loss"] for r in rows]
-    failures = []
-    if not np.allclose(ranks[0]["losses"], losses,
-                       rtol=MULTI_RANK_TOL["loss"]):
-        failures.append(f"multi-rank losses {ranks[0]['losses']} vs one "
-                        f"rank's {losses}")
-    _, fails = hold_states(want, ranks[0]["state"], MULTI_RANK_TOL,
-                           f"{n} ranks x 1 camera vs 1 rank x {n}", log)
-    failures += fails
-    for key in ("counter.visible_count", "counter.area_sum"):
-        if not np.array_equal(want[key], ranks[0]["state"][key]):
-            failures.append(f"multi-rank: {key} differs")
-    log(f"sharded_step multi-rank: {n} ranks on {cards} cards, "
-        f"{MULTI_RANK_STEPS} steps in {sec:.1f} s (step ms rank 0 "
-        f"{ranks[0]['ms']}), losses {ranks[0]['losses']} vs one rank's "
-        f"{losses}")
-    return {"cards": cards, "ran": True, "ranks": n,
-            "losses": ranks[0]["losses"], "one_rank_losses": losses,
-            "step_ms": ranks[0]["ms"]}, failures
+    if ranks is not None:
+        for r in ranks:
+            failures += r["failures"]
+            for k, v in r["errs"].items():
+                errs[k] = max(errs.get(k, 0.0), v)
+        rows = ranks[0]["held_rows"]
+        ms = np.array([r["ms"] for r in ranks])  # (ranks, steps)
+        r0_med = float(np.median(ms[0, 1:]))
+        max_med = float(np.median(ms[:, 1:].max(axis=0)))
+        out["step"] = {
+            "spawn_s": sec, "ms_rank0": ms[0].tolist(),
+            "ms_max_over_ranks": ms.max(axis=0).tolist(),
+            "ms_median_rank0": r0_med, "ms_median_max": max_med,
+            "cams_per_s": n * 1e3 / max_med,
+            "peak_bytes": [r["peak_bytes"] for r in ranks],
+            "bytes_per_step": ranks[0]["bytes_per_step"],
+            "profile": [r["profile"] for r in ranks],
+            "cull_gather": [r["cull_gather"] for r in ranks],
+            "worst_abs_diff": ranks[0].get("worst_abs_diff"),
+            "counts_equal": ranks[0].get("counts_equal"),
+            "losses": ranks[0]["losses"]}
+        out["densify"] = [r["densify"] for r in ranks]
+        out["render"] = {sh: {
+            "frame_ms_mean_rank0": ranks[0]["render"][sh]["frame_ms_mean"],
+            "frame_ms_mean_max": max(r["render"][sh]["frame_ms_mean"]
+                                     for r in ranks),
+            "flat_slice_frame_ms_mean": ranks[0]["render"][sh][
+                "flat_slice_frame_ms_mean"],
+            **{k: ranks[0]["render"][sh][k] for k in (
+                "k_local", "pairs", "bucket", "exchange_bytes_per_frame",
+                "gather_bytes_per_frame", "frames")}}
+            for sh in ranks[0]["render"]}
+        for key, run in ranks[0]["launches"].items():
+            launches[key] = run
+        n_calls.update({"multi_step": MULTI_RANK_STEPS,
+                        "multi_step_after_densify": 1,
+                        **{k: FRAMES for k in ranks[0]["launches"]
+                           if k.startswith("multi_render")}})
+        prof = ranks[0]["profile"]
+        log(f"multi_step: {n} ranks x 1 camera: step median {r0_med:.3f} ms "
+            f"on rank 0, {max_med:.3f} ms the slowest rank (steps 2-"
+            f"{MULTI_RANK_STEPS}), {n * 1e3 / max_med:.2f} cameras/s; one "
+            f"rank x {n}: {one_ms:.3f} ms ({n * 1e3 / one_ms:.2f} cameras/s);"
+            f" single card: {single_med:.3f} ms a camera "
+            f"({1e3 / single_med:.2f} cameras/s); peak GiB "
+            f"{[round(r['peak_bytes'] / 2**30, 3) for r in ranks]}; busy "
+            f"{[round(r['profile']['busy'], 3) for r in ranks]}; NCCL kernels "
+            f"{[round(r['profile']['nccl_ms'], 3) for r in ranks]} ms a step "
+            f"(share {[round(r['profile']['nccl_share'], 3) for r in ranks]})"
+            f"; rank 0's NCCL kernels {prof['nccl_kernels']}; bytes per step "
+            f"{out['step']['bytes_per_step']}; cull gather "
+            f"{ranks[0]['cull_gather']}")
+    # the 10.26M-point step
+    cap = _subphase("multi_capacity", lambda: spawn(
+        _multi_capacity_rank, n, "cuda", timeout_s=MULTI_TIMEOUT_S),
+        failures, log)
+    if cap is not None:
+        out["capacity"] = cap
+        launches["multi_capacity"] = cap[0]["launches"]
+        n_calls["multi_capacity"] = MULTI_CAPACITY_STEPS
+        if not all(math.isfinite(s["loss"]) for r in cap for s in r["steps"]):
+            failures.append("multi_capacity: non-finite loss")
+    # the band exchange at full scale with K1, on NCCL ranks
+    full = _subphase("multi_fullscale", lambda: check_sharded_fullscale.run(
+        N_ROOTS, MULTI_FULLSCALE_FRAMES, world=n, with_kernel=True),
+        failures, log)
+    if full is not None:
+        out["fullscale"] = full
+        log(f"multi_fullscale: {json.dumps(full)}")
+        if not full["ranks_agree"] or full["max_overflow"]:
+            failures.append("multi_fullscale: the ranks disagree or a "
+                            "bucket overflowed")
+    cli = _subphase("multi_cli", lambda: multi_cli_phase(n, log), failures,
+                    log)
+    if cli is not None:
+        out["cli"], cli_launches, cli_steps, cfail = cli
+        failures += cfail
+        launches.update(cli_launches)
+        n_calls.update(cli_steps)
+    return out, launches, n_calls, errs, rows, failures
 
 
-def sharded_render_phase(model, device, log):
+def sharded_render_phase(model, device, log, comm=None,
+                         label="sharded_render"):
     """The trained tree in the strided layout over the serving orbit
-    (1920x1088, FRAMES frames) at this process's one rank: at SH 1 (the
-    slice flow, K3) and SH 0 (the column flow, K4 + K3p), every frame held
-    against the single-card flat_slice frame without the weight cull
-    (tests/test_sharded_render.py's bound), the bucket sized from the
-    frames' pair demand, no overflow; frame 0's kernel calls against the
-    plain versions; the frame time beside the serving flat_slice frame
-    (render_fused) of the same call. Returns (json, launches by SH, held
-    errors, held K1 rows, failures)."""
+    (1920x1088, FRAMES frames) on comm's ranks (this process's one rank by
+    default): at SH 1 (the slice flow, K3) and SH 0 (the column flow, K4 +
+    K3p), every frame held against the single-card flat_slice frame
+    without the weight cull, which each rank renders on its own card
+    (tests/test_sharded_render.py's bound); the budgets from those frames'
+    cuts and pair demands (band_sizes of the largest over the ranks), no
+    overflow; frame 0's kernel calls against the plain versions; the frame
+    time beside the serving flat_slice frame (render_fused) of the same
+    call, and the bytes this rank hands to the exchange and to the bands'
+    gather per frame. Returns (json, launches by SH, held errors, held K1
+    rows, failures)."""
     import torch
 
     from log_tpu_torch.model.train_step import fused_prepare_render
-    from log_tpu_torch.ops import kernels, pick_max_pairs
+    from log_tpu_torch.ops import kernels
     from log_tpu_torch.parallel.comm import Comm
     from log_tpu_torch.parallel.sharded_render import (ShardedRenderConfig,
                                                        interleave_shard_rows,
@@ -3318,7 +3922,7 @@ def sharded_render_phase(model, device, log):
     from log_tpu_torch.render.renderer import camera_device
 
     failures, out, launches, errs, held_rows = [], {}, {}, {}, {}
-    comm = Comm()
+    comm = comm if comm is not None else Comm()
     n = comm.world
     model.eval()
     model.tree.cut_method = "flat_slice"
@@ -3346,17 +3950,20 @@ def sharded_render_phase(model, device, log):
             for cam in cams]
         cuts = [int(r[2][:2].sum()) for r in refs]
         demand = [int(r[3]) for r in refs]
-        k_local = min(-(-int(max(cuts) * 1.1) // 32768) * 32768,
-                      model.capacity // n)
-        pairs = pick_max_pairs(int(max(demand) * 1.1), per_point=1)
+        # the largest over the ranks: every rank must take the same budgets
+        big = comm.pmax(torch.tensor([max(cuts), max(demand)],
+                                     dtype=torch.int64, device=device))
+        k_local, pairs, bucket = band_sizes(int(big[0]), int(big[1]),
+                                            model.capacity, n)
         cfg = ShardedRenderConfig(
             image_height=H, image_width=W, n_devices=n, k_local=k_local,
-            max_pairs_local=pairs, bucket_pairs=pairs, sh_degree=sh,
+            max_pairs_local=pairs, bucket_pairs=bucket, sh_degree=sh,
             min_res_pixel=mr, layout="strided")
         frames, calls = [], {}
         kernels.reset_launches()
         for i, cam in enumerate(cams):
             ctx = recording(calls) if i == 0 else contextlib.nullcontext()
+            moved = dict(comm.bytes)
             with ctx:
                 (img, alpha, stats), sec = timed(lambda: sharded_render_frame(
                     params_s, tree_s, cam, model.num_points, mr,
@@ -3367,13 +3974,15 @@ def sharded_render_phase(model, device, log):
                           .float().mean())
             st = stats.tolist()
             frames.append({"ms": sec * 1e3, "cut": st[0], "pairs": st[1],
-                           "overflow": st[2], "max_abs_diff": float(d),
+                           "overflow": st[2], "lens": st[3:],
+                           "max_abs_diff": float(d),
                            "share_past_atol": share,
-                           "finite": bool(torch.isfinite(img).all())})
+                           "finite": bool(torch.isfinite(img).all()),
+                           "bytes": {k: comm.bytes[k] - moved.get(k, 0)
+                                     for k in comm.bytes}})
         ran = dict(kernels.LAUNCHES)
-        launches[f"sharded_render_sh{sh}"] = ran
-        e, f = hold_calls(calls, f"sharded_render SH {sh} frame 0", log,
-                          held_rows)
+        launches[f"{label}_sh{sh}"] = ran
+        e, f = hold_calls(calls, f"{label} SH {sh} frame 0", log, held_rows)
         failures += f
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
@@ -3385,33 +3994,41 @@ def sharded_render_phase(model, device, log):
                  * 1e3 for c in cameras]
         model.gaussian.active_sh_degree = sh_max
         ms = [x["ms"] for x in frames[WARMUP:]]
+        exchange = float(np.mean([x["bytes"].get("all_to_all", 0)
+                                  for x in frames]))
+        gathered = float(np.mean([x["bytes"].get("all_gather", 0)
+                                  for x in frames]))
         bad = [i for i, x in enumerate(frames)
                if x["overflow"] or not x["finite"] or x["cut"] != cuts[i]
                or x["max_abs_diff"] >= BAND_MAX
                or x["share_past_atol"] >= BAND_OUTLIERS]
         need = ("pack_rows", "rasterize_fwd",
                 "expand_with_keys" if sh else "expand_packed")
-        log(f"sharded_render SH {sh}: k_local {k_local}, pairs {pairs}, "
-            f"bucket {pairs}; frame ms " + " ".join(f"{x['ms']:.1f}"
+        log(f"{label} SH {sh} ({n} ranks): k_local {k_local}, pairs {pairs}, "
+            f"bucket {bucket}; frame ms " + " ".join(f"{x['ms']:.1f}"
                                                      for x in frames)
             + f"; mean {np.mean(ms):.3f} ms (frames {WARMUP}-{FRAMES - 1}) "
             f"against the flat_slice frame's {np.mean(serve[WARMUP:]):.3f} "
             f"ms; cuts {[x['cut'] for x in frames]}, pairs exchanged "
             f"{[x['pairs'] for x in frames]}, overflow "
-            f"{max(x['overflow'] for x in frames)}; max |sharded - single| "
+            f"{max(x['overflow'] for x in frames)}; bytes handed to the "
+            f"exchange {exchange:.0f} and to the bands' gather {gathered:.0f}"
+            f" a frame; max |sharded - single| "
             f"{max(x['max_abs_diff'] for x in frames):.3g}, share past "
             f"{BAND_ATOL} {max(x['share_past_atol'] for x in frames):.3g}; "
             f"launches {ran}")
         if bad:
-            failures.append(f"sharded_render SH {sh}: frames {bad} overflow, "
+            failures.append(f"{label} SH {sh}: frames {bad} overflow, "
                             f"differ from the single-card frame or are not "
                             f"finite")
         if min(ran[k] for k in need) < FRAMES:
-            failures.append(f"sharded_render SH {sh}: kernels {need} not "
+            failures.append(f"{label} SH {sh}: kernels {need} not "
                             f"launched every frame: {ran}")
         out[f"sh{sh}"] = {"k_local": k_local, "pairs": pairs,
-                          "frames": frames,
+                          "bucket": bucket, "frames": frames,
                           "frame_ms_mean": float(np.mean(ms)),
+                          "exchange_bytes_per_frame": exchange,
+                          "gather_bytes_per_frame": gathered,
                           "flat_slice_frame_ms": serve,
                           "flat_slice_frame_ms_mean":
                               float(np.mean(serve[WARMUP:]))}
@@ -4498,12 +5115,69 @@ def tools_phase(log):
     return out, failures
 
 
+def multi_main(device, log) -> int:
+    """`--only multi`: the training snapshot of the training phase (the
+    3.24M-point tree, its 4 views and GT, the perturbation), then
+    multi_rank_phase alone; fewer than two cards is a failure."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"FAIL: --only multi needs two cards or more, found {cards}",
+              file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    model = build_train_model(device)
+    batches = train_batches()
+    make_ground_truth(model, batches, device, log)
+    snapshot = snapshot_of(model)
+    del model
+    torch.cuda.empty_cache()
+    log(f"multi setup: {snapshot['gaussian.xyz'].shape[0]} rows, "
+        f"{time.perf_counter() - t0:.2f} s")
+    (mc_json, launches, n_calls, errs, rows, failures), sec = timed(
+        lambda: multi_rank_phase(snapshot, batches, device, log))
+    mc_json["phase_s"] = sec
+    log(f"multi_card phase: {sec:.2f} s")
+    log(json.dumps({"multi_card": mc_json}))
+    kernels_json = []
+    for name, (src, replaces) in KERNEL_SOURCES.items():
+        by_phase = {phase: run[name] for phase, run in launches.items()}
+        kernels_json.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "launches_per_call": {phase: k / n_calls[phase]
+                                  for phase, k in by_phase.items()
+                                  if k and n_calls.get(phase)},
+            "max_abs_err": errs.get(name), "held_rows": rows.get(name, []),
+            "library_ms": None, "library_note": NO_LIBRARY_CALL[name]})
+    if failures:
+        for f in failures:
+            print("FAIL: " + f, file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels_json}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--torchrun-cli"]:
+        return torchrun_cli_main(sys.argv[2:])
+    only = None
+    if "--only" in sys.argv[1:]:
+        only = sys.argv[sys.argv.index("--only") + 1:][:1]
+        if only != ["multi"]:
+            print(f"chip_smoke: --only takes 'multi', not {only}",
+                  file=sys.stderr)
+            return 2
     from log_tpu_torch.ops import kernels
     from log_tpu_torch.render.renderer import NaiveRendererAndLoss
 
@@ -4524,6 +5198,8 @@ def main() -> int:
             log("  ptxas: " + line.strip())
 
     device = "cuda"
+    if only:
+        return multi_main(device, log)
     t0 = time.perf_counter()
     model = build_model(N_ROOTS, device)
     renderer = NaiveRendererAndLoss(split="demo", device=device)
@@ -4680,17 +5356,20 @@ def main() -> int:
         (ss_json, ss_launches, held["sharded_step"], ss_rows, ss_model,
          ssfail) = sharded_step_phase(snapshot, batches, device, log)
         failures += ssfail
-        ss_json["multi_rank"], mrfail = multi_rank_phase(snapshot, batches,
-                                                         device, log)
-        failures += mrfail
         (sr_json, sr_launches, held["sharded_render"], sr_rows,
          srfail) = sharded_render_phase(ss_model, device, log)
         failures += srfail
     del ss_model
-    for phase_rows in (ss_rows, sr_rows):
+    torch.cuda.empty_cache()
+    (mc_json, mc_launches, mc_calls, held["multi_card"], mc_rows,
+     mcfail) = multi_rank_phase(snapshot, batches, device, log)
+    failures += mcfail
+    for phase_rows in (ss_rows, sr_rows, mc_rows):
         rows["rasterize_fwd"]["modes"] += phase_rows.get("rasterize_fwd", [])
     rows["rasterize_bwd"]["sharded_step_calls"] = ss_rows.get(
         "rasterize_bwd", [])
+    if mc_rows.get("rasterize_bwd"):
+        rows["rasterize_bwd"]["multi_card_calls"] = mc_rows["rasterize_bwd"]
     del snapshot, batches
     torch.cuda.empty_cache()
     two_json, model, ts_launches, held["two_stage"], tfail = two_stage_phase(
@@ -4761,7 +5440,7 @@ def main() -> int:
         "spill": spill_json, "two_stage": two_json,
         "grown_frame": frame_json, "cli": cli_json, "cli_depth": cd_json,
         "sharded_step": ss_json, "sharded_render": sr_json,
-        "cli_parallel": cp_json, "viewer": viewer_json,
+        "multi_card": mc_json, "cli_parallel": cp_json, "viewer": viewer_json,
         "vanilla": vanilla_json, "viewer_cli": vc_json, "tools": tools_json,
         "scale": sc_json, "dissect": dk_json, "bench": bk_json,
         "cli_mask": cm_json,
@@ -4770,7 +5449,8 @@ def main() -> int:
     runs = dict(serve_runs, train=t_launches, growth=g_launches,
                 depth_step=d_launches, **s_launches, two_stage=ts_launches,
                 grown_frame=gf_launches, **cli_launches, **cd_launches,
-                sharded_step=ss_launches, **sr_launches, **cp_launches,
+                sharded_step=ss_launches, **sr_launches, **mc_launches,
+                **cp_launches,
                 viewer=v_launches, **van_launches, viewer_cli=vc_launches,
                 **sc_launches, **dk_launches, **bk_launches, **cm_launches)
     # main-path calls per phase: frames, training steps, or renders
@@ -4780,7 +5460,8 @@ def main() -> int:
                    spill=SPILL_STEPS, spill_after_densify=SPILL_AFTER_DENSIFY,
                    two_stage=len(two_json["steps"]), grown_frame=1,
                    **cli_calls, **cd_calls, sharded_step=SHARDED_STEPS,
-                   **{k: FRAMES for k in sr_launches}, **cp_steps,
+                   **{k: FRAMES for k in sr_launches}, **mc_calls,
+                   **cp_steps,
                    viewer=VIEWER_REQUESTS, vanilla=FRAMES, check_viewer=1,
                    viewer_cli=VIEWER_CLI_REQUESTS, **sc_calls, **bk_calls,
                    **cm_calls)

@@ -16,6 +16,7 @@ from os.path import join
 
 import numpy as np
 
+from ..parallel.comm import rank_zero_first
 from ..utils import image_io
 from .base import prepare_camera, rescale_camera
 from .camera_utils import get_center_and_diag
@@ -142,36 +143,40 @@ class ImageDataset(ImageBase):
             cachedir = join(self.root, self.cache)
         self.cachedir = cachedir
         print(f"[{self.__class__.__name__}] cache dir: {self.cachedir}")
-        flag, infos = self.read_cache(name=cachedir + ".pkl")
-        if not flag:
-            cameras_loaded = self.check_cameras(
-                scale3d=scale3d, scale_camera_K=scale_camera_K)
-            cameras_cache = {}
-            infos = []
-            for camname, camera_dis in cameras_loaded.items():
-                if pre_undis:
-                    camera = self.check_undis_camera(
-                        camname, cameras_cache, camera_dis, share_camera)
-                else:
-                    camera = camera_dis
-                imgname = join(self.root, images, camname + ext)
-                if not os.path.exists(imgname):
-                    print("Not exists:", imgname)
-                    continue
-                infos.append({
-                    "root": self.root,
-                    "cache": cachedir,
-                    "imgname": join(images, camname + ext),
-                    "camera": camera.copy(),
-                    "scales": list(scales),
-                })
-            print(f"[{self.__class__.__name__}] undistort and scale "
-                  f"{len(infos)} images ")
-            for info in infos:
-                read_undistort_rescale_write(info)
-                info["camera"].pop("mapx", None)
-                info["camera"].pop("mapy", None)
-            self.write_cache(infos, name=cachedir + ".pkl")
+        with rank_zero_first() as lead:
+            flag, infos = self.read_cache(name=cachedir + ".pkl")
+            if not flag and not lead:
+                raise RuntimeError(f"{cachedir}.pkl: rank 0 left the cache "
+                                   f"unfilled")
+            if not flag:
+                cameras_loaded = self.check_cameras(
+                    scale3d=scale3d, scale_camera_K=scale_camera_K)
+                cameras_cache = {}
+                infos = []
+                for camname, camera_dis in cameras_loaded.items():
+                    if pre_undis:
+                        camera = self.check_undis_camera(
+                            camname, cameras_cache, camera_dis, share_camera)
+                    else:
+                        camera = camera_dis
+                    imgname = join(self.root, images, camname + ext)
+                    if not os.path.exists(imgname):
+                        print("Not exists:", imgname)
+                        continue
+                    infos.append({
+                        "root": self.root,
+                        "cache": cachedir,
+                        "imgname": join(images, camname + ext),
+                        "camera": camera.copy(),
+                        "scales": list(scales),
+                    })
+                print(f"[{self.__class__.__name__}] undistort and scale "
+                      f"{len(infos)} images ")
+                for info in infos:
+                    read_undistort_rescale_write(info)
+                    info["camera"].pop("mapx", None)
+                    info["camera"].pop("mapy", None)
+                self.write_cache(infos, name=cachedir + ".pkl")
         centers = np.stack(
             [-i["camera"]["R"].T @ i["camera"]["T"] for i in infos], axis=0)
         offset, radius = get_center_and_diag(centers)

@@ -45,12 +45,13 @@ class ImageBase:
         raise NotImplementedError
 
     def write_cache(self, infos, name="cache"):
+        """Pickle the info list, under a temporary name renamed into place
+        (image_io.write_bytes_atomic): a reader never sees half of it."""
         cachename = name if name.endswith(".pkl") else join(self.cache, name + ".pkl")
         if not os.path.exists(cachename):
             print("write cache to ", cachename)
             os.makedirs(os.path.dirname(cachename), exist_ok=True)
-            with open(cachename, "wb") as f:
-                pickle.dump(infos, f)
+            image_io.write_bytes_atomic(cachename, pickle.dumps(infos))
 
     def read_cache(self, name="cache"):
         """The info list pickled by either package (files this project

@@ -167,10 +167,21 @@ def check(rc: int, name: str) -> None:
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor."""
+    """Raise unless every tensor is a contiguous CUDA tensor on the current
+    device: the kernels launch on the current device's stream (`stream()`),
+    so a tensor on another card would be read across the link, or fault."""
+    current = None
     for t in tensors:
         if not (t.is_cuda and t.is_contiguous()):
             raise ValueError(
                 f"{name}: expected contiguous CUDA tensors, got "
                 f"{t.device} contiguous={t.is_contiguous()}"
             )
+        if current is None:
+            current = torch.cuda.current_device()
+        if t.device.index != current:
+            raise ValueError(
+                f"{name}: a tensor lies on {t.device} while the current "
+                f"device is cuda:{current}; the kernel launches on the "
+                f"current device (torch.cuda.set_device, or "
+                f"torch.cuda.device(...) around the call)")

@@ -17,9 +17,13 @@ the same names in every torch release the port runs on, where the tensor
 forms are deprecated in newer ones. bool tensors travel as uint8 (NCCL has
 no bool). Without an initialized process group the axis has one rank and
 every collective is the identity.
+
+`rank_zero_first` orders work that writes shared files (the dataset cache):
+rank 0 runs it while the other ranks wait at a barrier, then they run it.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import defaultdict
 
 import torch
@@ -28,6 +32,26 @@ import torch.distributed as dist
 
 def group_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
+
+
+@contextlib.contextmanager
+def rank_zero_first():
+    """Run the block on rank 0 first: the other ranks wait at a barrier of
+    the default group until rank 0 has left the block (or raised in it),
+    then run it. Yields True on the rank that runs first (rank 0, or the
+    only process outside a group or in a group of one), False on the
+    others. Every rank of the group must enter it."""
+    if not group_initialized() or dist.get_world_size() == 1:
+        yield True
+        return
+    lead = dist.get_rank() == 0
+    if not lead:
+        dist.barrier()
+    try:
+        yield lead
+    finally:
+        if lead:
+            dist.barrier()
 
 
 class Comm:

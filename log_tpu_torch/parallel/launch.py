@@ -7,9 +7,11 @@ runs fn(rank, world, rank_device, *args) in `world` processes started with
 torch.multiprocessing's spawn method (fn and args must pickle: a function
 at the top level of an importable module). The group meets over a FileStore
 in a fresh temporary directory, so that concurrent launches never share a
-port. device "cuda" (the default): NCCL, rank r on card r; "cpu": gloo,
-one thread per rank. Returns the ranks' return values in rank order. Raises if a rank raises,
-dies, or the ranks outlive timeout_s; every rank is stopped first.
+port. device "cuda" (the default): NCCL, rank r on card r, the kernel
+library built here once before any rank starts (the ranks load it);
+"cpu": gloo, one thread per rank. Returns the ranks' return values in rank
+order. Raises if a rank raises, dies, or the ranks outlive timeout_s; every
+rank is stopped first.
 """
 from __future__ import annotations
 
@@ -50,6 +52,10 @@ def _rank_main(rank, world, device, store_path, timeout_s, fn, args, out):
 
 def spawn(fn, world: int, device="cuda", args=(),
           timeout_s: float = 120.0):
+    if torch.device(device).type == "cuda":
+        from ..ops import kernels
+
+        kernels.build()
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="log_tpu_ranks_") as tmp:

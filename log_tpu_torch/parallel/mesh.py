@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .comm import group_initialized
+from .comm import group_initialized, rank_zero_first
 
 # a collective that waits longer raises (every rank's, not only the slow one)
 TIMEOUT_S = 600.0
@@ -95,7 +95,9 @@ def initialize_distributed(coordinator: str | None = None,
     MASTER_ADDR:MASTER_PORT, WORLD_SIZE and RANK. A no-op returning None
     when none of them is set. On a CUDA device the group is NCCL and the
     process takes device LOCAL_RANK (else its rank) first; on the CPU it
-    is gloo. Returns the rank's device.
+    is gloo. Returns the rank's device. On a CUDA device rank 0 builds the
+    kernel library (ops/kernels.build) while the other ranks wait, so that
+    n ranks started together compile it once.
     """
     env = os.environ
     if coordinator is None:
@@ -127,4 +129,10 @@ def initialize_distributed(coordinator: str | None = None,
         backend, init_method=f"tcp://{coordinator}",
         world_size=int(num_processes), rank=int(process_id),
         timeout=timedelta(seconds=TIMEOUT_S))
+    if device.type == "cuda":
+        # the kernel library: built by rank 0, loaded by the others
+        from ..ops import kernels
+
+        with rank_zero_first():
+            kernels.build()
     return device

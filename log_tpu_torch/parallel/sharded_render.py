@@ -10,15 +10,17 @@ rows, and the compositing kernel K1 on image BANDS, sort-middle:
   2. local compaction to a k_local slice, activation, projection;
   3. local expansion and one sort by (tile, depth, lane) (`expand_sort_pairs`:
      K3, or on the column flow K4 + K3p where k_local is a multiple of
-     32,768), then a second sort by the INTERLEAVED band key;
+     32,768), each pair carrying the global row of its point as its id,
+     then a second sort by the INTERLEAVED band key;
   4. band exchange: one fixed-capacity bucket per (source, band owner),
      sliced at the band boundaries and exchanged by all_to_all; a run
      longer than the bucket is cut and the overflow reported. Band
      ownership is round-robin over tile rows (owner = tile_row mod n), so
      that every screen region spreads 1/n to each owner;
   5. band merge and kernel: the owner re-sorts the pairs it received by
-     (tile, depth, gid), packs them (K4) and composites its band's tiles
-     with K1 without stats. Pixel rows are rebased per pair (a pair renders
+     (tile, depth, global row), the single-device order, depth ties
+     included (f32 depths tie often among millions of points), packs
+     them (K4) and composites its band's tiles with K1 without stats. Pixel rows are rebased per pair (a pair renders
      exactly one tile, so shifting its splat center to the tile's local
      frame is exact);
   6. image assembly: the bands all_gathered and de-interleaved.
@@ -140,15 +142,21 @@ def _local_cut(params_l, tree_l, cam, alive, min_res, current_depth):
                         alive, min_res, current_depth)
 
 
-def _local_pairs(params_l, cam, keep, cfg: ShardedRenderConfig):
+def _local_pairs(params_l, cam, keep, global_row, cfg: ShardedRenderConfig):
     """Compaction, activation, projection and the sorted pairs of the local
-    slice (`expand_sort_pairs`)."""
+    slice (`expand_sort_pairs`), each pair's id the global row of its
+    point: the single-device frame breaks depth ties by lane, which is
+    global row order, and so does the owner's merge-sort."""
     need = ["xyz", "colors", "scaling", "opacity", "rotation"]
     use_cols = not (cfg.sh_degree > 0 and "shs" in params_l)
     if not use_cols:
         need.append("shs")
-    slices, _index, lane_valid = _compact_slices_gather(
+    slices, index, lane_valid = _compact_slices_gather(
         {k: params_l[k] for k in need}, keep, cfg.k_local)
+    capl = global_row.shape[0]
+    ids = torch.where(lane_valid,
+                      global_row[torch.clamp(index.long(), max=capl - 1)],
+                      capl * cfg.n_devices)
     cam_args = (cam["world_view"], cam["full_proj"], cam["focal_x"],
                 cam["focal_y"], cam["tan_fovx"], cam["tan_fovy"])
     if use_cols:
@@ -178,7 +186,7 @@ def _local_pairs(params_l, cam, keep, cfg: ShardedRenderConfig):
             active_mask=lane_valid, tight_radius=True)
     return expand_sort_pairs(splats, colors, cfg.height_pad, cfg.image_width,
                              cfg.max_pairs_local, runs_tail_only=True,
-                             active_prefix=lane_valid)
+                             active_prefix=lane_valid, gid_ids=ids)
 
 
 def _shard_render(params_l, tree_l, cam, n_alive, min_res, current_depth,
@@ -197,7 +205,7 @@ def _shard_render(params_l, tree_l, cam, n_alive, min_res, current_depth,
     # ---- 1-3: local cut, slice, pairs sorted by (tile, depth, lane) ----
     keep = _local_cut(params_l, tree_l, cam, alive, min_res, current_depth)
     count_local = keep.sum()
-    es = _local_pairs(params_l, cam, keep, cfg)
+    es = _local_pairs(params_l, cam, keep, global_row, cfg)
     tile_s, gid_s, values_s = es["tile_s"], es["gid_s"], es["values_s"]
     num_tiles = es["num_tiles"]
     band_tiles = cfg.band_tiles

@@ -274,10 +274,19 @@ def shard_step(packed_l, m1_l, m2_l, counter_l: dict, tree_rep: dict,
     vi = view_idx.tolist()
     w_host = weight.tolist()
     with torch.enable_grad():
+        # this rank's rows of every camera's slice, zeros where another
+        # rank owns the row. Those lanes read a spread of local rows, not
+        # one shared zero row: the gather's VJP adds their zero gradients
+        # into the rows they read, and the indexing backward sums the
+        # duplicates of one index in turn (at 4 ranks ~1.3M of them x D
+        # columns on one row took ~0.4 s a step on an H100)
         lidx = idx_all - row_offset
-        lidx = torch.where((lidx >= 0) & (lidx < capl), lidx, capl)
-        rows = torch.cat([packed_v, packed_v.new_zeros((1, packed_v.shape[1]))])
-        slice_my = comm.psum_scatter(rows[lidx])        # (B_local, K, D)
+        mine = (lidx >= 0) & (lidx < capl)
+        spread = torch.arange(lidx.numel(), device=dev).reshape(
+            lidx.shape) % capl
+        rows = packed_v[torch.where(mine, lidx, spread)]
+        slice_my = comm.psum_scatter(
+            torch.where(mine[..., None], rows, 0.0))    # (B_local, K, D)
         losses, l1s, ssims, radii_b, pw_b, pid_b = [], [], [], [], [], []
         for b in range(Bl):
             lane_valid = idx_my[b] < cap

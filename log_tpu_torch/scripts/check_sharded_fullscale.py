@@ -1,17 +1,21 @@
-"""The band-exchange sharded render at the serving scale, on gloo ranks on
-the CPU; counterpart of scripts/check_sharded_fullscale.py.
+"""The band-exchange sharded render at the serving scale, on NCCL ranks
+where the machine has a card for each, else on gloo ranks on the CPU;
+counterpart of scripts/check_sharded_fullscale.py.
 
 `parallel/sharded_render.sharded_render_frame` runs over the frame
 dissection's scene (`build_scene` + `pad_scene`, 600k roots = 3.24M
 points, root_major, then `interleave_shard_rows`, the executor's strided
-layout) and its orbit (1920x1088, focal 1400, min_res 3: camera i at
-2 pi i / 32) on `world` gloo
-ranks in as many processes (`parallel/launch.spawn`): NCCL cannot put two
-ranks on one card. The forward band kernel (K1) is skipped by default, as
-in the JAX script: the exchange statistics are computed before it. Per
-camera it records the largest bucket overflow (it must be 0), the
-(n_src, n_dst) exchange-length matrix and the pairs exchanged against the
-single-card frame's pair demand (`fused_prepare_render`'s flat_slice
+layout; every rank draws it from the seed on the CPU and moves it to its
+device) and its orbit (1920x1088, focal 1400, min_res 3: camera i at
+2 pi i / 32) on `world` ranks in as many processes
+(`parallel/launch.spawn`): NCCL, rank r on card r, where the reference
+runs on the card and the machine has `world` cards (NCCL cannot put two
+ranks on one card), else gloo. The forward band kernel (K1) runs on NCCL
+ranks and is skipped by default on gloo ones, as in the JAX script (the
+plain K1 at this scale takes minutes on the CPU): the exchange statistics
+are computed before it. Per camera it records the largest bucket overflow
+(it must be 0), the launches, the (n_src, n_dst) exchange-length matrix
+and the pairs exchanged against the single-card frame's pair demand (`fused_prepare_render`'s flat_slice
 column route without the cull, the frame the sharded one matches), which
 runs on the card unless device="cpu".
 
@@ -22,6 +26,9 @@ share of the largest demand (a multiple of 512), and the (src, dst) bucket
 
     python -m log_tpu_torch.scripts.check_sharded_fullscale [n_roots]
         [frames] [--world N] [--with-kernel]
+
+(under a `__main__` guard in any script that calls `run`: the ranks
+are spawned processes).
 """
 from __future__ import annotations
 
@@ -66,6 +73,7 @@ def _cams(frames, h, w, focal, dev="cpu"):
 
 def _rank(rank, world, device, scene, n_roots, frames, h, w, focal, cfg,
           threads, with_kernel):
+    from ..ops import kernels
     from ..ops import rasterize_tiled as rt
     from ..parallel.sharded_render import (ShardedRenderConfig,
                                            interleave_shard_rows,
@@ -78,19 +86,25 @@ def _rank(rank, world, device, scene, n_roots, frames, h, w, focal, cfg,
         params, tree, n = (
             {k: torch.from_numpy(v) for k, v in scene[0].items()},
             {k: torch.from_numpy(v) for k, v in scene[1].items()}, scene[2])
-    params = interleave_shard_rows(params, world)
-    tree = interleave_shard_rows(tree, world)
+    params = interleave_shard_rows(
+        {k: v.to(device) for k, v in params.items()}, world)
+    tree = interleave_shard_rows(
+        {k: v.to(device) for k, v in tree.items()}, world)
     if not with_kernel:
         rt.rasterize_forward = _no_kernel
     out = []
-    for cam in _cams(frames, h, w, focal):
+    for cam in _cams(frames, h, w, focal, device):
+        C.sync(device)
+        kernels.reset_launches()
         t0 = time.perf_counter()
         img, _, stats = sharded_render_frame(
-            params, tree, cam, n, MIN_RES, C.CURRENT_DEPTH, torch.zeros(3),
-            ShardedRenderConfig(**cfg))
+            params, tree, cam, n, MIN_RES, C.CURRENT_DEPTH,
+            torch.zeros(3, device=device), ShardedRenderConfig(**cfg))
+        C.sync(device)
         out.append({"stats": [int(x) for x in stats],
                     "wall_s": time.perf_counter() - t0,
-                    "image_std": float(img.std()) if with_kernel else None})
+                    "image_std": float(img.std()) if with_kernel else None,
+                    "launches": dict(kernels.LAUNCHES)})
     return out
 
 
@@ -116,17 +130,22 @@ def single_card(params, tree, n, cams, h, w, k_visible):
 
 def run(n_roots: int = 600_000, frames: int = 8, world: int = 2,
         h: int = H, w: int = W, focal: float = 1400.0, threads: int = 0,
-        with_kernel: bool = False, scene=None, timeout_s: float = 1800.0,
-        device=None) -> dict:
+        with_kernel: bool | None = None, scene=None,
+        timeout_s: float = 1800.0, device=None) -> dict:
     """scene: (params, tree arrays, n) as numpy dicts already padded (the
     ranks then use it in place of building the scene). threads: torch
     threads per rank (0: the cores over the ranks). device: where the
-    single-card reference frames run (the card unless "cpu")."""
+    single-card reference frames run (the card unless "cpu"); the ranks are
+    NCCL ones where that is the card and the machine has `world` cards,
+    gloo ones on the CPU otherwise. with_kernel: run K1 in the bands (None:
+    on NCCL ranks only)."""
     from ..model.gaussian import next_capacity
     from ..ops import budget_for_demand
     from ..parallel.launch import spawn
 
     dev = C.resolve_device(device)
+    nccl = dev.type == "cuda" and torch.cuda.device_count() >= world
+    with_kernel = nccl if with_kernel is None else bool(with_kernel)
     threads = threads or max(1, torch.get_num_threads() // world)
     t0 = time.perf_counter()
     if scene is None:
@@ -152,7 +171,7 @@ def run(n_roots: int = 600_000, frames: int = 8, world: int = 2,
                    int(3 * max_demand / world ** 2)),
                sh_degree=0, min_res_pixel=MIN_RES, layout="strided")
     setup_s = time.perf_counter() - t0
-    ranks = spawn(_rank, world, "cpu", args=(
+    ranks = spawn(_rank, world, "cuda" if nccl else "cpu", args=(
         scene, n_roots, frames, h, w, focal, cfg, threads, with_kernel),
         timeout_s=timeout_s)
     per = []
@@ -164,9 +183,10 @@ def run(n_roots: int = 600_000, frames: int = 8, world: int = 2,
                     "lens_max": max(max(r) for r in lens),
                     "single_card_cut": ref[i][0],
                     "single_card_demand": ref[i][1],
-                    "wall_s": fr["wall_s"], "image_std": fr["image_std"]})
-    out = {"metric": "sharded_fullscale_gloo", "card": C.card_line(dev),
-           "n_points": n,
+                    "wall_s": fr["wall_s"], "image_std": fr["image_std"],
+                    "launches": fr["launches"]})
+    out = {"metric": f"sharded_fullscale_{'nccl' if nccl else 'gloo'}",
+           "card": C.card_line(dev), "n_points": n,
            "capacity": cap, "world": world, "threads_per_rank": threads,
            "with_kernel": with_kernel, "config": cfg, "setup_s": setup_s,
            "frames": per,
@@ -192,9 +212,11 @@ def main(argv=None) -> None:
     ap.add_argument("n_roots", nargs="?", type=int, default=600_000)
     ap.add_argument("frames", nargs="?", type=int, default=8)
     ap.add_argument("--world", type=int, default=2)
-    ap.add_argument("--with-kernel", action="store_true")
+    ap.add_argument("--with-kernel", action="store_true",
+                    help="K1 in the bands on gloo ranks too")
     a = ap.parse_args(argv)
-    C.emit(run(a.n_roots, a.frames, a.world, with_kernel=a.with_kernel))
+    C.emit(run(a.n_roots, a.frames, a.world,
+               with_kernel=a.with_kernel or None))
 
 
 if __name__ == "__main__":

@@ -6,12 +6,16 @@ codec, whatever is installed. JPEG is decoded and encoded by `cv2`, else
 `PIL`, where one imports; with neither, reading a JPEG raises and writing
 one writes a PNG of the same stem instead (said once per process), while
 `encode_jpeg` (the viewer's bytes in memory) raises.
+Every file is written under a temporary name in its directory and
+renamed into place (`atomic_path`), so that a reader, another rank
+filling the same cache say, never sees half a file under its final name.
 `resize_area` is OpenCV's INTER_AREA for integer factors, in numpy.
 `make_video` joins numbered frames into an mp4 (ffmpeg, else cv2, else
 skipped). Nothing here touches a device.
 """
 from __future__ import annotations
 
+import contextlib
 import glob
 import io
 import os
@@ -222,9 +226,38 @@ def imread(name: str, flags: int = IMREAD_COLOR):
     return np.ascontiguousarray(img[:, :, :3])
 
 
+@contextlib.contextmanager
+def atomic_path(name: str):
+    """A temporary path beside `name` (same directory and extension, which
+    the encoders read) that becomes `name` by one os.replace when the block
+    ends; where the block raises, the temporary file is removed and `name`
+    is left as it was."""
+    folder, base = os.path.split(name)
+    stem, ext = os.path.splitext(base)
+    tmp = os.path.join(folder, f".{stem}.{os.getpid()}.tmp{ext}")
+    try:
+        yield tmp
+        os.replace(tmp, name)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _write_bytes(path: str, data: bytes) -> None:
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def write_bytes_atomic(name: str, data: bytes) -> None:
+    """`data` as the file `name`, written through atomic_path."""
+    with atomic_path(name) as tmp:
+        _write_bytes(tmp, data)
+
+
 def imwrite(name: str, img) -> str:
-    """Write a BGR(A) / gray image as cv2.imwrite does; returns the path
-    written (a .png in place of a JPEG where no encoder imports)."""
+    """Write a BGR(A) / gray image as cv2.imwrite does, through atomic_path;
+    returns the path written (a .png in place of a JPEG where no encoder
+    imports)."""
     os.makedirs(os.path.dirname(name) or ".", exist_ok=True)
     img = np.asarray(img)
     if not _is_png(name):
@@ -232,14 +265,17 @@ def imwrite(name: str, img) -> str:
         if backend == "cv2":
             import cv2
 
-            if not cv2.imwrite(name, img):
-                raise OSError(f"cv2 could not write {name}")
+            with atomic_path(name) as tmp:
+                if not cv2.imwrite(tmp, img):
+                    raise OSError(f"cv2 could not write {name}")
             return name
         if backend == "PIL":
             from PIL import Image
 
             rgb = img if img.ndim == 2 else img[:, :, 2::-1]
-            Image.fromarray(np.ascontiguousarray(rgb)).save(name, quality=95)
+            with atomic_path(name) as tmp:
+                Image.fromarray(np.ascontiguousarray(rgb)).save(tmp,
+                                                                quality=95)
             return name
         if not _warned_no_jpeg:
             _warned_no_jpeg.append(True)
@@ -248,8 +284,7 @@ def imwrite(name: str, img) -> str:
         name = os.path.splitext(name)[0] + ".png"
     if img.ndim == 3:
         img = img[:, :, [2, 1, 0, 3][:img.shape[2]]]  # BGR(A) -> RGB(A)
-    with open(name, "wb") as f:
-        f.write(png_encode(img))
+    write_bytes_atomic(name, png_encode(img))
     return name
 
 

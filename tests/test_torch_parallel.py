@@ -8,6 +8,9 @@ CPU, in gloo process groups started by parallel/launch.py.
       nothing);
   (c) the sharded step at 4 ranks, one real camera padded to the batch,
       against the port's single-device LoG.train_step over 5 steps;
+  (d) the bytes each rank hands to each collective in one
+      ShardedExecutor.step at 4 ranks equal wire_bytes' formula from the
+      shapes (capacity, batch, slice bucket, packed columns);
   (e) ShardedExecutor's refresh_from_model -> sync_to_model round trip is
       exact, a densify between steps at 2 ranks leaves both ranks' models
       equal, and a rank whose model differs makes the refresh raise;
@@ -152,8 +155,30 @@ def _run_port(model, cams, gts, steps, k, cams_per_device, real_per_step,
             "counter": host(counter), "losses": losses}
 
 
+def _wire_step(model, cams, gts, comm):
+    """(d) ShardedExecutor.step twice over the first cameras; the bytes
+    each collective was handed in the second (the first seeds the slice
+    bucket and gathers the state once), with the shapes it ran at."""
+    from log_tpu_torch.parallel.executor import ShardedExecutor
+
+    ex = ShardedExecutor(model, backend="reference", comm=comm)
+    B = ex.batch
+
+    def step():
+        ex.step(cams[:B], gts[:B], view_indices=list(range(B)),
+                backgrounds=[np.zeros(3, np.float32)] * B)
+
+    step()
+    comm.bytes.clear()
+    bucket = ex._bucket
+    step()
+    return {"bytes": dict(comm.bytes), "capacity": model.capacity,
+            "batch": B, "bucket": bucket, "columns": sum(ex.dims)}
+
+
 def _step_ranks(rank, world, device, state, gts, k_c):
-    """(a) 4 cameras a step at 4 ranks; (c) one real camera a step."""
+    """(a) 4 cameras a step at 4 ranks; (c) one real camera a step; (d)
+    the wire bytes of one executor step."""
     from log_tpu_torch.parallel.comm import Comm
 
     comm = Comm()
@@ -162,8 +187,10 @@ def _step_ranks(rank, world, device, state, gts, k_c):
                           world, comm),
            "c": _run_port(_port_model(state), cams, gts, STEPS_C, k_c, 1, 1,
                           comm),
+           "d": _wire_step(_port_model(state), cams, gts, Comm()),
            "jax": "jax" in sys.modules, "rank": comm.rank}
-    return out if rank == 0 else {"jax": out["jax"], "rank": comm.rank}
+    return out if rank == 0 else {"jax": out["jax"], "rank": comm.rank,
+                                  "d": out["d"]}
 
 
 def _jax_toy_model(tmp_path, seed, n=300):
@@ -356,6 +383,42 @@ def test_sharded_step_matches_single_device(steps):
     }
     _assert_state(want, steps["ranks"][0]["c"], n, rtol=2e-4, atol=2e-5,
                   moments=(2e-3, 1e-7))
+
+
+def wire_bytes(capacity, n, batch, k_leaf, k_node, columns):
+    """The bytes one rank hands to each collective in one sharded step of
+    the tree stage with the check cull and no per-view gain (parallel/
+    sharded_step.shard_step and ShardedExecutor.step), B = batch cameras,
+    Bl = B / n of them this rank's, K = k_leaf + k_node slice rows, D packed
+    f32 columns, cap / n local rows:
+      all_gather   Bl (128 + 32)        camera matrices f32, scalars f64
+                 + 44 cap / n           the check cull's xyz, scale,
+                                        rotation, opacity (11 f32)
+                 + 8 Bl K               the slice indices (int64)
+                 + 24 Bl K              the counter stats: indices int64,
+                                        radii and pixel counts int32,
+                                        weights and gradient norms f32
+                 + 16 Bl                the kept counts (int64 pairs)
+      all_to_all   5 B cap / n          frustum flags (bool) and radii f32
+      psum         12                   loss, L1 and SSIM (f32 scalars)
+      psum_scatter 4 B K D              every camera's slice rows
+      psum_scatter_grad 4 Bl K D        the cotangent of this rank's slices
+    """
+    bl, k, capl = batch // n, k_leaf + k_node, capacity // n
+    return {"all_gather": 160 * bl + 44 * capl + 32 * bl * k + 16 * bl,
+            "all_to_all": 5 * batch * capl, "psum": 12,
+            "psum_scatter": 4 * batch * k * columns,
+            "psum_scatter_grad": 4 * bl * k * columns}
+
+
+def test_wire_bytes_match_the_formula(steps):
+    """(d) every rank hands each collective wire_bytes(...) bytes."""
+    for r in steps["ranks"]:
+        d = r["d"]
+        assert d["bytes"] == wire_bytes(d["capacity"], 4, d["batch"],
+                                        *d["bucket"], d["columns"]), r["rank"]
+    d = steps["ranks"][0]["d"]
+    assert d["batch"] == 4 and d["bucket"][1] > 0 and d["columns"] == 23
 
 
 # ------------------------------------------------ (e) and (g): two ranks
