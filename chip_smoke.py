@@ -126,7 +126,10 @@ than two cards. Phases:
    their own inputs: the first step after a densify in init and in tree
    (K4, K3, K1 cull and full stats, K2), the first validation render of
    training and of final_val, the demo's first timed frame (K4, K3, K1,
-   K5, and K3p where it ran) and val's first frame;
+   K5, and K3p where it ran) and val's first frame. The run draws the
+   JAX package's random numbers (utils/jax_random.py): the first init
+   densify's keep mask, jax.random.uniform drawn on the card, is held bit
+   for bit against the numpy version of the same draw;
 13. cli_depth: 16-bit inverse-depth maps of the cli scene's views at its
    scale 4 (64x80), rendered by the oracle from the scene's generator
    Gaussians; the same schedule through log_tpu_torch.apps.train with
@@ -138,7 +141,9 @@ than two cards. Phases:
    run's); demo_interpolate with render_type depth and then height (60
    frames, none constant, the first equal to marigold_depth_vis of vis's
    map); the first tree step after a densify held against the plain
-   versions (K1 without stats and both K2 calls among them).
+   versions (K1 without stats and both K2 calls among them); the first
+   step's patch corners (jax.random.randint from PRNGKey(step), drawn on
+   the card) held bit for bit against the numpy version.
 14. sharded_step: in a one-rank NCCL process group (parallel/mesh.py's
    initialize_distributed), the training snapshot (before its first step)
    trained SHARDED_STEPS steps through ShardedExecutor.step (the tiled
@@ -667,6 +672,55 @@ def _copied(x, device=None):
     if isinstance(x, (list, tuple)):
         return type(x)(_copied(v, device) for v in x)
     return x
+
+
+@contextlib.contextmanager
+def recorded_draws(name, calls, limit):
+    """utils/jax_random.<name> (the device draws of JAX's random numbers)
+    recording its first `limit` calls: (bound arguments without the
+    device, a host copy of the words)."""
+    import inspect
+
+    from log_tpu_torch.utils import jax_random
+
+    real = getattr(jax_random, name)
+    sig = inspect.signature(real)
+
+    def draw(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if len(calls) < limit:
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            bound.arguments.pop("device")
+            calls.append((dict(bound.arguments), out.cpu().numpy()))
+        return out
+
+    with patched(jax_random, {name: draw}):
+        yield
+
+
+def check_draws(calls, name, label, log):
+    """Each recorded draw of jax_random.<name> on the card against the
+    numpy version on the host, bit for bit. Returns failures."""
+    from log_tpu_torch.utils import jax_random
+
+    if not calls:
+        return [f"{label}: no {name} draw recorded"]
+    failures = []
+    for args, got in calls:
+        want = getattr(jax_random, f"np_{name}")(**args)
+        if got.dtype.kind == "f":
+            same = np.array_equal(got.view(np.uint32), want.view(np.uint32))
+        else:
+            same = np.array_equal(got, want)
+        log(f"{label}: jax_random.{name} key {args['key'].tolist()} shape "
+            f"{tuple(args['shape'])} on the card equals the numpy version "
+            f"bit for bit: {same} (first words {got.ravel()[:3].tolist()})")
+        if not same:
+            failures.append(f"{label}: jax_random.{name} on the card differs "
+                            f"from the numpy version at "
+                            f"{int((got != want).sum())} of {got.size}")
+    return failures
 
 
 @contextlib.contextmanager
@@ -2684,9 +2738,11 @@ def _cli_phase(log, out, failures):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ckpt = os.path.join(CLI_EXP, "model_tree_full.pth")
+    draws = []  # the first init densify's keep mask, drawn on the card
     with patched(Trainer, {"training_step": step, "make_validation": val}), \
             patched(NaiveRendererAndLoss, {"render_one": one, "vis": frame}), \
-            patched(LoG, {"set_stage": set_stage}):
+            patched(LoG, {"set_stage": set_stage}), \
+            recorded_draws("uniform", draws, 1):
         trainer, train_s = run("train", lambda: train.main(
             argv + ["train"] + CLI_OPTS))
         t_end = time.perf_counter()
@@ -2767,6 +2823,7 @@ def _cli_phase(log, out, failures):
     if not all(os.path.exists(c) for c in ckpts):
         failures.append(f"cli: stage checkpoints missing: "
                         f"{[c for c in ckpts if not os.path.exists(c)]}")
+    failures += check_draws(draws, "uniform", "cli first init densify", log)
     log(f"cli resume: {resume_s:.2f} s, {n_resumed} steps, {resumed_points} "
         f"points (trained {trained_points})")
     if n_resumed or resumed_points != trained_points:
@@ -2988,8 +3045,10 @@ def _cli_depth_phase(plain_final, log, device):
     ckpt = os.path.join(CLI_DEPTH_EXP, "model_tree_full.pth")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    corners = []  # the first step's patch rows and cols, drawn on the card
     with patched(Trainer, {"training_step": step}), \
-            patched(NaiveRendererAndLoss, {"vis": frame, "render_one": one}):
+            patched(NaiveRendererAndLoss, {"vis": frame, "render_one": one}), \
+            recorded_draws("randint", corners, 2):
         trainer, out["phase_s"]["train"] = run(
             "train", lambda: train.main(argv + ["train"] + opts), steps)
         peak = torch.cuda.max_memory_allocated()
@@ -3016,6 +3075,8 @@ def _cli_depth_phase(plain_final, log, device):
                     for st, v in by_stage.items())
         + f"; step median {np.median(step_ms):.3f} ms; peak memory "
         f"{peak / 2**30:.3f} GiB; {points} points")
+    failures += check_draws(corners, "randint",
+                            "cli_depth first step's patch corners", log)
     no_depth = [i for i, x in enumerate(steps)
                 if x["depth"] is None or not math.isfinite(x["depth"])]
     uneven = [i for i, x in enumerate(steps) if x["ran"]["rasterize_bwd"] != 2

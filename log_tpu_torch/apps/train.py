@@ -181,7 +181,11 @@ def _run(args, cfg, device, main_rank: bool):
     from ..utils.trainer import Trainer, seed_everything
 
     seed_everything(666)
-    model = load_object(cfg.model.module, cfg.model.args, device=device)
+    # the JAX model's constructor seeds its densify stream with the first
+    # global draw after seed_everything, and the dataset's crop stream
+    # takes the second: the port draws them in the same order
+    model = load_object(cfg.model.module, cfg.model.args, device=device,
+                        seed=int(np.random.randint(0, 2**31 - 1)))
     if cfg.split == "train":
         outdir = copy_git_tracked_files("./", exp) if main_rank else None
         dataset = load_object(cfg.train.dataset.module, cfg.train.dataset.args)

@@ -158,6 +158,14 @@ class Counter:
             return data[key]
         raise AttributeError(key)
 
+    def get_gradmean(self) -> np.ndarray:
+        """The mean 2D gradient of each row, grad_sum / max(area_sum, 1),
+        on the host in float64 (numpy's promotion of float32 by int32, as
+        the JAX package computes it)."""
+        grad = self.data["grad_sum"].double()
+        area = torch.clamp(self.data["area_sum"], min=1).double()
+        return (grad / area).cpu().numpy()
+
     def reset(self, num_points: int, capacity: int | None = None) -> None:
         print(f"[{self.__class__.__name__}] reset counter -> {num_points}")
         capacity = capacity or num_points

@@ -22,6 +22,7 @@ import torch
 from ..ops import gaussian_math as gm
 from ..ops import pick_backend, pick_max_pairs
 from ..render.loss import draw_patch_offsets
+from ..utils import jax_random
 from . import densify_device as dd
 from .block_render import block_size_for, build_block_cache, render_blocks
 from .corrector import Corrector
@@ -59,11 +60,12 @@ class LoG:
             N=tree.get("max_child", 2),
             split_method=densify_and_remove.get("split_method", "uniform"),
         )
-        # the densify's random draws: the host path's from a numpy
-        # Generator, the device path's from a torch.Generator on the
-        # model's device, both seeded from `seed`
+        # the densify's random draws come from one numpy Generator seeded
+        # from `seed`: the host path draws from it, the device path draws
+        # the key of its jax.random draw from it, as the JAX model does.
+        # The CLI passes the JAX model's seed: the first global numpy draw
+        # after seed_everything (apps/train.py)
         self._rng = np.random.default_rng(seed)
-        self._torch_rng = torch.Generator(device=self.device).manual_seed(seed)
         self.num_views = 0
         self.use_view_correction = use_view_correction
         self.view_correction = (Corrector(use_view_correction)
@@ -350,8 +352,8 @@ class LoG:
                      mask_ignore, fg_mask, gt_depth) -> dict:
         """Device inputs of one step; advances the optimizer's step count
         and the LR schedule. With cfg.render_depth the depth map goes to the
-        device and the patch corners are drawn from a numpy Generator seeded
-        with the global step (the JAX step's key is PRNGKey(step))."""
+        device and the patch corners are the JAX step's: jax.random's draws
+        from PRNGKey(global step), made on the device."""
         dev = self.device
         self.optimizer.global_steps += 1
         step = self.optimizer.global_steps
@@ -360,7 +362,7 @@ class LoG:
             depth = torch.as_tensor(np.asarray(gt_depth, np.float32),
                                     device=dev)
             patches = draw_patch_offsets(*depth.shape,
-                                         np.random.default_rng(int(step)))
+                                         jax_random.prng_key(step), dev)
         host_lrs = _host_lrs(self.optimizer, step)
         self.lr = host_lrs.get("xyz", 0.0)
         if cfg.use_correction:
@@ -791,8 +793,8 @@ class LoG:
         cap = self.capacity
         n = self.num_points
         if rand_u is None:
-            u = torch.rand((2, cap), generator=self._torch_rng,
-                           device=self.device)
+            key = jax_random.prng_key(self._rng.integers(1 << 31))
+            u = jax_random.uniform(key, (2, cap), device=self.device)
         else:
             u = torch.zeros((2, cap), device=self.device)
             u[:, : rand_u.shape[1]] = torch.as_tensor(

@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.jax_random import np_exp
 from .gaussian import pad_rows
 
 _F32 = torch.float32
@@ -35,7 +36,9 @@ _F32 = torch.float32
 def expon_lr(step, lr_init: float, lr_final: float, lr_delay_steps: float = 0,
              lr_delay_mult: float = 1.0, max_steps: float = 1_000_000) -> float:
     """Log-linear LR decay, evaluated in float32 (the JAX package traces it
-    with float32 scalars)."""
+    with float32 scalars) with XLA's exp, so that the LR equals the JAX
+    package's bit for bit (torch's float32 exp differs from it by one ulp
+    at some steps)."""
     if lr_init == 0.0 and lr_final == 0.0:
         return 0.0
     step = torch.tensor(float(step), dtype=_F32)
@@ -46,10 +49,10 @@ def expon_lr(step, lr_init: float, lr_final: float, lr_delay_steps: float = 0,
     else:
         delay_rate = 1.0
     t = torch.clamp(step / max_steps, 0, 1)
-    log_lerp = torch.exp(
+    log_lerp = torch.tensor(np_exp((
         torch.tensor(np.log(lr_init), dtype=_F32) * (1 - t)
-        + torch.tensor(np.log(lr_final), dtype=_F32) * t
-    )
+        + torch.tensor(np.log(lr_final), dtype=_F32) * t).numpy()),
+        dtype=_F32)
     lr = delay_rate * log_lerp
     return 0.0 if float(step) < 0 else float(lr)
 

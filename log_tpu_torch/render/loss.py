@@ -4,9 +4,9 @@ invariant depth loss; counterpart of log_tpu/render/loss.py.
 `depth_patch_loss` compares the rendered depth with a monocular
 inverse-depth map on random square patches. The JAX package draws the
 patch offsets inside its jitted step from `jax.random.PRNGKey(step)`; the
-port takes them as arguments, drawn by `draw_patch_offsets` from a
-generator the caller seeds (the model seeds a numpy Generator with the
-global step), so a test can hand both packages the same offsets.
+port takes them as arguments, drawn by `draw_patch_offsets` from the same
+key (the model passes `jax_random.prng_key(global step)`), so the two
+packages draw the same corners.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..ops.ssim import ssim_loss as ssim_loss  # noqa: F401 (API parity)
+from ..utils import jax_random
 
 NUM_PATCH = 64
 PATCH_SIZE = 64
@@ -69,21 +70,19 @@ def scale_and_shift_invariant_loss(prediction, target, mask,
     return total + alpha * reg, pred_ssi
 
 
-def draw_patch_offsets(height: int, width: int, rng,
+def draw_patch_offsets(height: int, width: int, key, device,
                        num_patch: int = NUM_PATCH,
                        patch_size: int = PATCH_SIZE):
-    """(rows, cols) of num_patch patch corners, uniform in
-    [0, max(height - patch_size, 1)) and [0, max(width - patch_size, 1)),
-    rows drawn first. rng: a numpy Generator (int64 arrays back) or a
-    torch.Generator (int64 tensors on its device)."""
-    hi_r = max(height - patch_size, 1)
-    hi_c = max(width - patch_size, 1)
-    if isinstance(rng, torch.Generator):
-        kw = dict(generator=rng, device=rng.device, dtype=torch.int64)
-        return (torch.randint(0, hi_r, (num_patch,), **kw),
-                torch.randint(0, hi_c, (num_patch,), **kw))
-    return (rng.integers(0, hi_r, num_patch, dtype=np.int64),
-            rng.integers(0, hi_c, num_patch, dtype=np.int64))
+    """(rows, cols) of num_patch patch corners on `device` (int64), as the
+    JAX package's depth_patch_loss draws them from `key`: the rows by
+    jax.random.randint over [0, max(height - patch_size, 1)) from the first
+    key of split(key), the cols over [0, max(width - patch_size, 1)) from
+    the second (utils/jax_random.py)."""
+    k_rows, k_cols = jax_random.split(key)
+    return (jax_random.randint(k_rows, (num_patch,), 0,
+                               max(height - patch_size, 1), device),
+            jax_random.randint(k_cols, (num_patch,), 0,
+                               max(width - patch_size, 1), device))
 
 
 class _Patches(torch.autograd.Function):

@@ -9,7 +9,10 @@ config trains through `log_tpu_torch.apps.train` once per backend
 (LOG_TPU_BACKEND=tiled, then reference) under <out>/<backend>, and
 `apps.final_val` validates each run's last stage checkpoint. Reports each
 run's validation PSNR series (the "val/psnr" records of its scalars.jsonl),
-its final-val PSNR and SSIM and its wall times.
+its point count after each densify ("train/num_points"; the two backends
+draw the same random numbers, so where these part, a densify decided
+differently on the two backends' arithmetic), its final-val PSNR and SSIM
+and its wall times.
 
     python -m log_tpu_torch.scripts.backend_equivalence
         [--cfg config/synthetic/train.yml] [--out output/equiv]
@@ -33,16 +36,16 @@ SCENES = {"config/synthetic/train.yml": ["200", "16", "120", "160"],
 STAGE_CKPTS = ("model_tree_full.pth", "model_tree.pth", "model_init.pth")
 
 
-def val_series(exp: str) -> list:
-    """[(step, psnr)] of the "val/psnr" records the training run logged
-    (its scalars.jsonl sits in the run's code snapshot under exp)."""
+def val_series(exp: str, key: str = "val/psnr") -> list:
+    """[(step, value)] of the `key` records the training run logged (its
+    scalars.jsonl sits in the run's code snapshot under exp)."""
     series = []
     for path in sorted(glob.glob(os.path.join(exp, "code_backup_*",
                                               "scalars.jsonl"))):
         with open(path) as f:
             for line in f:
                 r = json.loads(line)
-                if r.get("key") == "val/psnr":
+                if r.get("key") == key:
                     series.append((r["step"], r["val"]))
     return series
 
@@ -91,6 +94,7 @@ def run(cfg: str = "config/synthetic/train.yml", out: str = "output/equiv",
             res["runs"][backend] = {
                 "train_s": train_s, "final_val_s": time.perf_counter() - t0,
                 "val_psnr": val_series(exp),
+                "num_points": val_series(exp, "train/num_points"),
                 "final_val": {k: float(record[k])
                               for k in ("psnr", "ssim", "l1")}}
     finally:

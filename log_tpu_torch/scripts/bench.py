@@ -3,12 +3,12 @@ card; counterpart of bench.py.
 
 The scene is bench.py's: the synthetic tree of n_roots roots (600k ->
 3.24M points, a capacity of 4,194,304 rows) built on the device
-(`utils/synth_tree.build_scene` from a torch.Generator seed: jax.random's
-bits cannot be reproduced) and padded by `pad_scene` in the root_major
-layout; SH degree 0, 3 levels, current depth 20, check scale 4, a black
-background; an orbit of frames + 2 cameras at 2 pi i / (frames + 2) (focal
-1400, height 18, radius 22). The cells, under bench.py's labels and JSON
-keys:
+(`utils/synth_tree.build_scene` from PRNGKey(0), bench.py's key: the same
+points, drawn with `utils/jax_random.py`) and padded by `pad_scene` in the
+root_major layout; SH degree 0, 3 levels, current depth 20, check scale 4,
+a black background; an orbit of frames + 2 cameras at 2 pi i /
+(frames + 2) (focal 1400, height 18, radius 22). The cells, under
+bench.py's labels and JSON keys:
 
 - headline, `minres3_cullfirst_perframe`: the reference's per-frame order
   (LoG/model/level_of_gaussian.py:229-243 culls the roots before the tree

@@ -2,8 +2,8 @@
 prepare, render and fused phases of scripts/bench_explore.py.
 
 The scene is `utils/synth_tree.build_scene` on the device (n_roots roots,
-a torch.Generator seed) in the level layout, 1920x1088 at focal 1400,
-min_res 3, the generic flat cut (`cut_method="flat"`, SH 0):
+from PRNGKey(0) as in the JAX script) in the level layout, 1920x1088 at
+focal 1400, min_res 3, the generic flat cut (`cut_method="flat"`, SH 0):
 
   prepare   `prepare_visibility`: the frustum test, the root weight cull at
             1/4 resolution and the flat cut over the capacity; and again

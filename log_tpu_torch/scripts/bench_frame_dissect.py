@@ -2,7 +2,8 @@
 stage; counterpart of scripts/bench_frame_dissect.py.
 
 The scene is the JAX script's: `utils/synth_tree.build_scene` on the device
-(600k roots, 3.24M points, a torch.Generator seed) padded by `pad_scene` in
+(600k roots, 3.24M points, from PRNGKey(0) as in the JAX script: the same
+points, drawn with `utils/jax_random.py`) padded by `pad_scene` in
 the root_major layout, SH 0, 1920x1088 at focal 1400, min_res 3, the
 flat_slice cut over the alive bucket `cap_sort`. No stage is a copy: the
 script runs the port's own stage chains (`train_step.flat_slice_stages`,
@@ -78,12 +79,13 @@ def make_scene(n_roots: int, layout: str, dev, seed: int = C.SEED):
     """(params, tree arrays, is_leaf_opt, n, cap) of the synthetic scene
     built on the device and padded to next_capacity(n)."""
     from ..model.gaussian import next_capacity
+    from ..utils.jax_random import prng_key
     from ..utils.synth_tree import build_scene, pad_scene, tree_sizes
 
     n = tree_sizes(n_roots)[2]
     cap = next_capacity(n)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params, tree, leaf = pad_scene(*build_scene(n_roots, gen), cap, layout)
+    params, tree, leaf = pad_scene(
+        *build_scene(n_roots, prng_key(seed), dev), cap, layout)
     return params, tree, leaf, n, cap
 
 

@@ -56,12 +56,13 @@ def _no_kernel(pair_data, tile_start, tile_count, background, tiles_x,
 
 def _scene(n_roots, seed, layout="root_major"):
     from ..model.gaussian import next_capacity
+    from ..utils.jax_random import prng_key
     from ..utils.synth_tree import build_scene, pad_scene, tree_sizes
 
     n = tree_sizes(n_roots)[2]
     params, tree, _ = pad_scene(
-        *build_scene(n_roots, torch.Generator().manual_seed(seed)),
-        next_capacity(n), layout)
+        *build_scene(n_roots, prng_key(seed), "cpu"), next_capacity(n),
+        layout)
     return params, tree, n
 
 

@@ -3,9 +3,10 @@ log_tpu/utils/synth_tree.py.
 
 Two generators share one tree structure. `build_checkpoint` draws on the
 host from a numpy seed and returns a LoG checkpoint; `build_scene` (the
-counterpart of `build_scene_device`) draws on the device from a
-`torch.Generator`, with the JAX generator's distributions and zero SH, so
-that a multi-M-point scene needs no host build. `pad_scene` (the
+counterpart of `build_scene_device`) draws on the device the JAX
+generator's own random numbers (`utils/jax_random.py`) from a key, with
+zero SH, so that a multi-M-point scene needs no host build and is the
+scene that the JAX scripts draw from the same key. `pad_scene` (the
 counterpart of `padded_model_device`) pads either generator's arrays to a
 capacity in the "level" or "root_major" row layout and adds the flat cut's
 caches: its output is the (params, tree arrays, is_leaf_opt) that
@@ -201,51 +202,56 @@ def scene_tree(n_roots: int, device) -> dict:
             "depth": depth, "root_id": root_id}
 
 
-@torch.no_grad()
-def build_scene(n_roots: int, generator: torch.Generator, device=None):
-    """The synthetic scene drawn on the generator's device: (params, tree),
-    every array n_total rows long, unpadded (build_scene_device's
-    contract). params: xyz, colors (SH DC), scaling (log), opacity (logit),
-    rotation, shs (zeros, (n, 3, 3)); tree: scene_tree's arrays. The draws
-    follow build_scene_device's distributions (jax.random's bits cannot be
-    reproduced); the roots are Morton-ordered over the 60 x 60 extent."""
-    dev = torch.device(generator.device if device is None else device)
+def build_scene(n_roots: int, key, device="cuda"):
+    """The synthetic scene of build_scene_device(key, n_roots), drawn on
+    `device` with the JAX package's random numbers (utils/jax_random.py;
+    `key` is a jax_random key, e.g. `prng_key(0)` for bench.py's scene):
+    (params, tree), every array n_total rows long, unpadded. params: xyz,
+    colors (SH DC), scaling (log), opacity (logit), rotation, shs (zeros,
+    (n, 3, 3)); tree: scene_tree's arrays. The uniform draws equal JAX's
+    bit for bit and the normal draws within a few ulps (jax_random's
+    normal); the roots are Morton-ordered over the 60 x 60 extent."""
+    from . import jax_random as jr
+
+    dev = torch.device(device)
     n1, n2, n = tree_sizes(n_roots)
     ext = 30.0
-    f32 = dict(dtype=torch.float32, device=dev, generator=generator)
+    ks = jr.split(key, 10)
 
-    def uniform(shape, lo, hi):
-        return lo + (hi - lo) * torch.rand(shape, **f32)
+    def uniform(k, shape, lo=0.0, hi=1.0):
+        return jr.uniform(ks[k], shape, lo, hi, dev)
 
-    xyz_r = torch.stack([uniform((n_roots,), -ext, ext),
-                         uniform((n_roots,), -ext, ext),
-                         uniform((n_roots,), 0.0, 2.0)], dim=1)
-    scal_r = uniform((n_roots, 1), 0.08, 0.25) * uniform((n_roots, 3), 0.6,
-                                                          1.4)
+    xyz_r = torch.stack([uniform(0, (n_roots,), -ext, ext),
+                         uniform(1, (n_roots,), -ext, ext),
+                         uniform(2, (n_roots,), 0.0, 2.0)], dim=1)
+    scal_r = uniform(3, (n_roots, 1), 0.08, 0.25) * uniform(4, (n_roots, 3),
+                                                            0.6, 1.4)
     order = torch.sort(_morton2d_key(xyz_r[:, 0], xyz_r[:, 1], ext),
                        stable=True).indices
     xyz_r, scal_r = xyz_r[order], scal_r[order]
     tree = scene_tree(n_roots, dev)
     ip = tree["index_parent"].long()
 
-    def children(xyz_p, scal_p, parent_rows):
-        off = torch.randn((parent_rows.shape[0], MAX_CHILD, 3), **f32)
+    def children(xyz_p, scal_p, parent_rows, k):
+        off = jr.normal(ks[k], (parent_rows.shape[0], MAX_CHILD, 3), dev)
         p_xyz, p_scal = xyz_p[parent_rows], scal_p[parent_rows]
         c_xyz = p_xyz[:, None] + off * p_scal[:, None] * 0.5
         c_scal = (p_scal[:, None] * 0.55).expand_as(c_xyz)
         return c_xyz.reshape(-1, 3), c_scal.reshape(-1, 3)
 
-    c1_xyz, c1_scal = children(xyz_r, scal_r, ip[n_roots:n_roots + n1:4])
+    c1_xyz, c1_scal = children(xyz_r, scal_r, ip[n_roots:n_roots + n1:4], 5)
     c2_xyz, c2_scal = children(c1_xyz, c1_scal,
-                               ip[n_roots + n1::4] - n_roots)
+                               ip[n_roots + n1::4] - n_roots, 6)
     xyz = torch.cat([xyz_r, c1_xyz, c2_xyz])
     scal = torch.cat([scal_r, c1_scal, c2_scal])
-    colors = torch.rand((n, 3), **f32)
-    q = torch.randn((n, 4), **f32)
-    opac = uniform((n, 1), 0.3, 0.95)
+    colors = uniform(7, (n, 3))
+    q = jr.normal(ks[8], (n, 4), dev)
+    opac = uniform(9, (n, 1), 0.3, 0.95)
     params = {
         "xyz": xyz,
-        "colors": (colors - 0.5) / SH_C0,
+        # XLA divides by the constant as a multiply by its float32
+        # reciprocal
+        "colors": (colors - 0.5) * float(1 / np.float32(SH_C0)),
         "scaling": torch.log(scal),
         "opacity": torch.log(opac / (1.0 - opac)),
         "rotation": q / torch.linalg.norm(q, dim=1, keepdim=True),

@@ -7,7 +7,8 @@ The models are built as tests/test_densify_device.py builds them (a point
 cloud through register_by_pointcloud, training_setup), with counters and
 moments set by hand from a numpy seed; the JAX model's state_dict carries
 the state across to the port. The random keep draws are injected as
-`rand_u` in both packages (their generators differ).
+`rand_u` in both packages, or drawn by each from a stream seeded alike
+(test_update_init_stage_draws_match_jax).
 
 Limits: flags, num_points, capacity, tree arrays and integer counters
 exactly equal; params, moments and float counters to rtol 1e-5, atol 1e-6
@@ -410,6 +411,38 @@ def test_update_init_stage_matches_jax(path, mode):
     if mode == "split_by_2d":
         assert port.capacity == next_capacity(port.num_points) > 256
     assert port._bucket is None and port._render_bucket is None
+
+
+@pytest.mark.parametrize("path", ["off", "on"])
+def test_update_init_stage_draws_match_jax(path):
+    """No rand_u: each model draws its keep mask from its own densify
+    stream, seeded alike: the host path draws the uniforms from it, the
+    device path the key of its jax.random.uniform (utils/jax_random.py in
+    the port); both streams end in the same state."""
+    ref = _jax_model()
+    n = ref.num_points
+    _set_counters(ref, 11, split_rows=np.arange(0, n, 5))
+    port = _carry(ref, path)
+    ref._rng = np.random.default_rng(1234)
+    port._rng = np.random.default_rng(1234)
+    ref.update_init_stage(scale=1)
+    port.update_init_stage(scale=1)
+    _assert_models_equal(port, ref)
+    assert port.num_points != n  # the draws kept, split and removed rows
+    assert port._rng.bit_generator.state == ref._rng.bit_generator.state
+
+
+def test_gradmean_matches_jax():
+    """Counter.get_gradmean on the same counters: grad_sum / max(area_sum,
+    1), float64 on the host, equal."""
+    ref = _jax_model()
+    _set_counters(ref, 5)
+    port = _carry(ref, "off")
+    got, want = port.counter.get_gradmean(), ref.counter.get_gradmean()
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got[:ref.num_points],
+                                  want[:ref.num_points])
+    assert (np.asarray(ref.counter.area_sum)[:ref.num_points] == 0).any()
 
 
 @pytest.mark.parametrize("path", ["off", "on"])

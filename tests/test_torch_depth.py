@@ -10,8 +10,9 @@ Limits:
   a_00 a_11 - a_01^2, and the two packages' summation orders then differ
   by up to 4e-4 of the largest gradient);
 - the depth step on LOG_TPU_BACKEND=reference in both packages (the JAX
-  tiled depth pass composites in bf16, ROADMAP fact i), with the JAX
-  step's patch corners (drawn from PRNGKey(step)) handed to the port:
+  tiled depth pass composites in bf16, ROADMAP fact i), each package
+  drawing the patch corners from PRNGKey(step) (the port with
+  utils/jax_random.py):
   tests/test_torch_train_step.py's limits (loss to 1e-5, first moments to
   1e-3 of each key's largest, parameters to 1e-6 where the gradient is
   above 1e-4 of its key's largest, integer counters equal, float counters
@@ -51,6 +52,7 @@ from log_tpu_torch.model.train_step import StepConfig, fused_train_step
 from log_tpu_torch.render import loss
 from log_tpu_torch.render.renderer import NaiveRendererAndLoss, camera_device
 from log_tpu_torch.utils import config
+from log_tpu_torch.utils import jax_random as jr
 from log_tpu_torch.utils.synth_tree import build_checkpoint
 
 from test_torch_dataset import _write_scene
@@ -184,14 +186,18 @@ def test_depth_patch_loss_matches_jax(gt_shape):
 
 
 def test_patch_offsets_from_a_generator():
-    """draw_patch_offsets: the same range rule from a numpy or a torch
-    Generator, reproducible from its seed; take_patches clamps."""
-    r1, c1 = loss.draw_patch_offsets(70, 200, np.random.default_rng(3))
-    r2, c2 = loss.draw_patch_offsets(70, 200, np.random.default_rng(3))
-    assert np.array_equal(r1, r2) and np.array_equal(c1, c2)
-    assert r1.min() >= 0 and r1.max() < 6 and c1.max() < 136
-    rt, ct = loss.draw_patch_offsets(64, 64, torch.Generator().manual_seed(1))
-    assert rt.dtype == torch.int64 and not rt.any() and not ct.any()
+    """draw_patch_offsets: the JAX step's corners from the same key (rows
+    from the first split key, cols from the second), on the device asked
+    for; take_patches clamps."""
+    for h, w, step in ((70, 200, 3), (64, 64, 1), (320, 1088, 12345)):
+        rows, cols = loss.draw_patch_offsets(h, w, jr.prng_key(step), "cpu")
+        want = _jax_patches(jax.random.PRNGKey(step), h, w)
+        assert rows.dtype == cols.dtype == torch.int64
+        assert rows.device.type == "cpu"
+        np.testing.assert_array_equal(rows.numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(cols.numpy(), np.asarray(want[1]))
+        assert rows.max() < max(h - loss.PATCH_SIZE, 1)
+        assert cols.max() < max(w - loss.PATCH_SIZE, 1)
     img = torch.arange(70 * 80, dtype=torch.float32).reshape(70, 80)
     p = loss.take_patches(img, [100, 3], [-5, 10], patch_size=64)
     assert torch.equal(p[0], img[6:70, 0:64])
@@ -208,7 +214,7 @@ CAP, N = 256, 200
 def test_depth_step_matches_jax(monkeypatch):
     """One fused_train_step with render_depth on the oracle in both
     packages: the depth pass's colors (camera depth, world z, 1) and its
-    patch loss, with the JAX step's corners injected."""
+    patch loss, each package drawing the corners from PRNGKey(5)."""
     monkeypatch.setenv("LOG_TPU_BACKEND", "reference")
     params = _scene(CAP)
     keep = np.arange(CAP) < N
@@ -224,7 +230,7 @@ def test_depth_step_matches_jax(monkeypatch):
                 + 0.05 * rng.uniform(size=(H, W))).astype(np.float32)
     bg = np.array([0.2, 0.5, 0.7], np.float32)
     key = jax.random.PRNGKey(5)
-    patches = _jax_patches(key, H, W)
+    patches = loss.draw_patch_offsets(H, W, jr.prng_key(5), "cpu")
     corr = {"values": np.ones((1, 3), np.float32),
             "m1": np.zeros((1, 3), np.float32),
             "m2": np.zeros((1, 3), np.float32),

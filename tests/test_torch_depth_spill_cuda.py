@@ -81,12 +81,13 @@ def test_depth_patch_loss_reproducible(cuda):
     run to run (overlapping patches add up in a fixed order) and agrees
     with the CPU's."""
     from log_tpu_torch.render.loss import depth_patch_loss, draw_patch_offsets
+    from log_tpu_torch.utils.jax_random import prng_key
 
     rng = np.random.default_rng(5)
     pred = rng.uniform(2.0, 30.0, (96, 160)).astype(np.float32)
     gt = rng.uniform(0.0, 1.0, (96, 160)).astype(np.float32)
     acc = rng.uniform(0.4, 1.0, (96, 160)).astype(np.float32)
-    rows, cols = draw_patch_offsets(96, 160, np.random.default_rng(7))
+    rows, cols = draw_patch_offsets(96, 160, prng_key(7), "cpu")
     grads = []
     for dev in (cuda, cuda, "cpu"):
         p = torch.tensor(pred, device=dev, requires_grad=True)

@@ -42,6 +42,7 @@ from log_tpu_torch.scripts import _common as C
 from log_tpu_torch.scripts import (bench_frame_dissect, bench_kernel,
                                    bench_trainstep_dissect,
                                    check_sharded_fullscale)
+from log_tpu_torch.utils import jax_random
 from log_tpu_torch.utils.synth_tree import build_scene, pad_scene, tree_sizes
 
 H, W, FOCAL = 64, 256, 120.0
@@ -69,7 +70,7 @@ def scene():
     n = tree_sizes(N_ROOTS)[2]
     cap = next_capacity(n)
     params, tree, leaf = pad_scene(
-        *build_scene(N_ROOTS, torch.Generator().manual_seed(5)), cap,
+        *build_scene(N_ROOTS, jax_random.prng_key(5), "cpu"), cap,
         "root_major")
     return params, tree, leaf, n, cap
 

@@ -54,7 +54,7 @@ def test_package_imports_without_jax():
         assert f"log_tpu_torch.{name}" in names
     from log_tpu_torch.model import train_step
     from log_tpu_torch.scripts import _common, bench
-    from log_tpu_torch.utils import synth_tree
+    from log_tpu_torch.utils import jax_random, synth_tree
 
     for fn in ("run", "main", "find_min_res_for_cut", "fused_cell",
                "block_cell", "block_cache", "timed_cell", "memory",
@@ -66,6 +66,10 @@ def test_package_imports_without_jax():
 
     for fn in ("build_scene", "pad_scene", "checkpoint_scene", "scene_tree"):
         assert callable(getattr(synth_tree, fn))
+    assert "log_tpu_torch.utils.jax_random" in names
+    for fn in ("prng_key", "split", "uniform", "randint", "normal",
+               "np_split", "np_uniform", "np_randint", "np_normal", "np_exp"):
+        assert callable(getattr(jax_random, fn))
     for fn in ("run_stages", "flat_slice_stages", "packed_frame_stages",
                "root_cull_stages", "train_step_stages", "alive_rows"):
         assert callable(getattr(train_step, fn))

@@ -4,11 +4,13 @@ build_scene_device and padded_model_device, on the CPU.
 
 pad_scene given JAX's own unpadded scene equals padded_model_device in both
 layouts, every array exactly (cull_seg_starts and is_leaf_opt included).
-build_scene's tree arrays equal JAX's exactly; its draws (a torch.Generator:
-jax.random's bits cannot be reproduced) lie in build_scene_device's ranges
-with the roots in Morton order. The port's flat_slice frame of the padded
-JAX scene agrees with JAX's within ROADMAP fact o's packed bound (max 3e-2,
-at most 0.1% of the pixels past 1e-2), the counts exactly. A checkpoint's
+build_scene's tree arrays equal JAX's exactly, and so do its uniform draws
+(utils/jax_random.py: the roots' positions, in Morton order, and the
+colors); the normal draws and the logs of the scales and opacities are
+within 4 ulps of each key's largest value. The port's flat_slice frame of
+the padded JAX scene agrees with JAX's within ROADMAP fact o's packed
+bound (max 3e-2, at most 0.1% of the pixels past 1e-2), the counts
+exactly. A checkpoint's
 points through checkpoint_scene -> pad_scene("root_major") give the frame
 of load_state_dict -> optimize_render_layout() on the same points.
 """
@@ -29,6 +31,7 @@ from log_tpu_torch.model import train_step as ts
 from log_tpu_torch.model.gaussian import next_capacity
 from log_tpu_torch.render.renderer import camera_device
 from log_tpu_torch.scripts import _common as C
+from log_tpu_torch.utils import jax_random
 from log_tpu_torch.utils.config import load_object
 from log_tpu_torch.utils.synth_tree import (build_checkpoint, build_scene,
                                             checkpoint_scene, pad_scene,
@@ -96,11 +99,24 @@ def test_pad_scene_equals_padded_model_device(jax_scene, layout):
 
 
 def test_build_scene_tree_and_draws():
-    params, tree = build_scene(N_ROOTS, torch.Generator().manual_seed(0))
-    _, want = build_scene_device(jax.random.PRNGKey(0), N_ROOTS)
+    params, tree = build_scene(N_ROOTS, jax_random.prng_key(0), "cpu")
+    want_p, want = build_scene_device(jax.random.PRNGKey(0), N_ROOTS)
     for k, v in want.items():
         np.testing.assert_array_equal(tree[k].numpy(), np.asarray(v),
                                       err_msg=k)
+    assert set(params) == set(want_p)
+    # the uniform draws bit for bit: the roots' positions (and so their
+    # Morton order) and the colors
+    for k, rows in (("xyz", slice(0, N_ROOTS)), ("colors", slice(None))):
+        np.testing.assert_array_equal(params[k][rows].numpy(),
+                                      np.asarray(want_p[k])[rows], err_msg=k)
+    # the normal draws (the children's offsets, the rotations) within a
+    # few ulps, and the logs of the scales and opacities (XLA's own float32
+    # log) likewise: within 4 ulps of each key's largest value
+    for k, v in want_p.items():
+        v = np.asarray(v)
+        gap = np.abs(params[k].numpy() - v).max()
+        assert gap <= 4 * np.spacing(np.abs(v).max()), (k, gap)
     n1, n2, n = tree_sizes(N_ROOTS)
     xyz = params["xyz"].numpy()
     assert all(v.shape[0] == n for v in params.values())
@@ -129,8 +145,8 @@ def test_build_scene_tree_and_draws():
         key |= ((q[:, 0] >> b) & 1).astype(np.int64) << (2 * b)
         key |= ((q[:, 1] >> b) & 1).astype(np.int64) << (2 * b + 1)
     assert (np.diff(key) >= 0).all()
-    # the same generator seed gives the same scene
-    again, _ = build_scene(N_ROOTS, torch.Generator().manual_seed(0))
+    # the same key gives the same scene
+    again, _ = build_scene(N_ROOTS, jax_random.prng_key(0), "cpu")
     assert all(torch.equal(params[k], again[k]) for k in params)
 
 
