@@ -175,8 +175,8 @@ than two cards. Phases:
       for bit, and one step after it;
    c. band render: 15's frames on the n ranks, each rank's frame 0 kernel
       calls held, the bytes each rank hands to the exchange;
-   d. the 10.26M-point tree of bench_capacity built on every rank from
-      the seed, MULTI_CAPACITY_STEPS steps (ms and peak per rank);
+   d. the 10.26M-point synthetic tree (build_checkpoint of 1.9M roots)
+      built on every rank from the seed, MULTI_CAPACITY_STEPS steps (ms and peak per rank);
    e. check_sharded_fullscale at n NCCL ranks with K1: the exchange-length
       matrix, pairs exchanged against the single-card demand, overflow 0;
    f. the CLI: config/synthetic_parallel through log_tpu_torch.apps.train
@@ -236,7 +236,9 @@ than two cards. Phases:
    close 4K vanilla frame of its roots through render_one) and
    bench_capacity (the 10.26M-point tree: memory, block frames at min_res
    96 and 3, the fused flat_slice frame at 96, the tree-stage step,
-   maybe_spill not engaged); every frame cell's budget sized from its
+   maybe_spill not engaged), each on its JAX script's scene (the trees of
+   padded_model_device(PRNGKey(0), ...) built on the card, the step state
+   and GT of the JAX scripts' keys); every frame cell's budget sized from its
    demand and re-timed at a raised budget where a timed frame overflowed,
    none over its budget; the first frame or step of the SCALE_HELD cells
    recorded and held against the plain versions (K3p and K5 of the 4K and
@@ -492,8 +494,8 @@ MULTI_RANK_TOL = {"params": (1e-4, 1e-6), "rotation": (1e-3, 2e-4),
 # profiler (the NCCL kernels' device time), the check cull's gather timed
 # alone (MULTI_GATHER_REPS), a depth densify whose refresh checks the
 # ranks' models bit for bit, one step after it, and the band render; then
-# MULTI_CAPACITY_STEPS steps of bench_capacity's 10.26M-point tree (each
-# rank builds it from the seed) at min_res MULTI_CAPACITY_MIN_RES;
+# MULTI_CAPACITY_STEPS steps of the 10.26M-point synthetic tree
+# (build_checkpoint; each rank builds it from the seed) at min_res MULTI_CAPACITY_MIN_RES;
 # check_sharded_fullscale on NCCL ranks with K1 (MULTI_FULLSCALE_FRAMES);
 # the CLI under torchrun at n ranks of one camera and at one rank of n
 # (MULTI_CLI_*: config/synthetic_parallel on a scene made by the port's
@@ -3590,8 +3592,8 @@ def capacity_views(n, h=H, w=W, focal=1400.0):
 
 
 def _multi_capacity_rank(rank, world, device):
-    """One NCCL rank of the 10.26M-point step: bench_capacity's tree
-    (MULTI_CAPACITY_ROOTS roots, capacity 12,582,912) built on this rank's
+    """One NCCL rank of the 10.26M-point step: the synthetic tree of
+    build_checkpoint (MULTI_CAPACITY_ROOTS roots, capacity 12,582,912) built on this rank's
     card from the seed (not sent: the pickle would be ~3 GB), zero moments;
     the executor's refresh checks that every rank built the same tree; then
     MULTI_CAPACITY_STEPS steps of one camera a rank at min_res
@@ -4338,10 +4340,9 @@ def scale_checks(out, launches, n_calls, log):
     cap = out["capacity"]
     tr = cap["train"]
     log(f"scale capacity: {cap['n_points']} points, capacity "
-        f"{cap['capacity']}; build {cap['build_s']:.2f} s (host peak "
-        f"{cap['build_peak_host_bytes'] / 2**30:.3f} GiB), load "
-        f"{cap['load_s']:.2f} s, layout {cap['layout_s']:.2f} s; "
-        f"{cap['live_bytes_before'] / 2**30:.3f} GiB held before the load; "
+        f"{cap['capacity']}; build on the card {cap['build_s']:.2f} s, "
+        f"block cache {cap['block_cache_s']:.2f} s; "
+        f"{cap['live_bytes_before'] / 2**30:.3f} GiB held before the build; "
         f"memory at rest {cap['memory_at_rest']}, with the block cache "
         f"{cap['memory_with_block_cache']}; step (k_leaf {tr['k_leaf']}, "
         f"k_node {tr['k_node']}) median {tr['step_ms_median']:.3f} ms, peak "

@@ -1,7 +1,8 @@
 """Shared pieces of the scale and dissection scripts: the device rule, the
 card line, the orbit camera of the repo's scripts (`make_cam`), the
-synthetic tree's load, the honest timing loop of the frame cells, and the
-stage timer (`time_stage`, `stage_table`).
+synthetic tree as the JAX scale scripts hold it (`PaddedTree`), the
+honest timing loop of the frame cells, and the stage timer (`time_stage`,
+`stage_table`).
 
 The honest loop sizes a cell's pair budget from the unclamped demand that
 its sizing frames measured (`budget_for_demand`), times the frames between
@@ -18,7 +19,6 @@ import json
 import math
 import subprocess
 import time
-import tracemalloc
 import warnings
 
 import numpy as np
@@ -131,26 +131,35 @@ def orbit(n, h, w, focal, dev, height=18.0, radius=22.0, turns=None):
                                    height, radius), dev) for i in range(n)]
 
 
-def load_tree(n_roots: int, dev, seed: int = SEED):
-    """The synthetic tree of n_roots roots loaded as chip_smoke.py loads
-    it: build_checkpoint, then load_object -> LoG.load_state_dict (eval
-    mode, SH enabled). Returns (model, checkpoint, build seconds, the peak
-    of the host allocations numpy made for the build, by tracemalloc)."""
-    from ..utils.config import load_object
-    from ..utils.synth_tree import build_checkpoint
+class PaddedTree:
+    """The synthetic tree as the JAX scale scripts hold it: the arrays of
+    `padded_model_device(PRNGKey(seed), n_roots, cap, layout)`
+    (scripts/bench_4k.py:82-84, scripts/bench_capacity.py:91-93), drawn on
+    the device with the JAX package's random numbers
+    (`bench_frame_dissect.make_scene`: synth_tree's build_scene +
+    pad_scene; SH degree 0), and the root bucket and level count the
+    scripts derive from them. No `LoG` model: the cells call the model's
+    functions on these arrays, as the JAX scripts do."""
 
-    tracemalloc.start()
-    t0 = time.perf_counter()
-    ckpt = build_checkpoint(n_roots, seed=seed)
-    build_s = time.perf_counter() - t0
-    peak = tracemalloc.get_traced_memory()[1]
-    tracemalloc.stop()
-    model = load_object("LoG.model.level_of_gaussian.LoG", MODEL_ARGS,
-                        device=dev)
-    model.load_state_dict(ckpt)
-    model.set_state(enable_sh=True)
-    model.eval()
-    return model, ckpt, build_s, peak
+    def __init__(self, n_roots: int, dev, layout: str = "root_major",
+                 seed: int = SEED):
+        from .bench_frame_dissect import make_scene
+
+        (self.params, self.tree, self.leaf, self.n,
+         self.cap) = make_scene(n_roots, layout, dev, seed)
+        self.n_roots = min(next_capacity(n_roots), self.cap)
+        self.num_levels = int(self.tree["depth"][: self.n].max()) + 1
+        self.block_cache = None
+
+    def build_block_cache(self) -> None:
+        """`build_block_cache` at block_size_for(capacity), as the JAX
+        scripts call it."""
+        from ..model.block_render import block_size_for, build_block_cache
+
+        S = block_size_for(self.cap)
+        cols, meta = build_block_cache(self.params, self.tree, self.leaf,
+                                       self.n, S)
+        self.block_cache = {"cols": cols, "meta": meta, "S": S}
 
 
 def finite(tensors) -> bool:
@@ -286,9 +295,10 @@ def honest_steps(step, cfg, steps: int, warmup: int, dev, hold=None,
             "peak_bytes": peak, "launches": launched}
 
 
-def block_cell(model, cams, min_res: float, frames: int, cull_every: int,
-               dev, sizing=(8, 16), hold=None, label="blocks"):
-    """The block-pruned frame (render_blocks after optimize_render_layout)
+def block_cell(tree: PaddedTree, cams, min_res: float, frames: int,
+               cull_every: int, dev, sizing=(8, 16), hold=None,
+               label="blocks"):
+    """The block-pruned frame (render_blocks over the tree's block cache)
     through the honest loop. Sizing frames at cams[0] and cams[sizing]
     (full block and slice buckets) give the cut, the pair demand and the
     eligible blocks; the slice bucket is 1.2x the cut, the block bucket
@@ -299,21 +309,19 @@ def block_cell(model, cams, min_res: float, frames: int, cull_every: int,
     from ..model.train_step import fused_root_cull
     from ..ops import pick_max_pairs
 
-    cache = model._block_cache
+    cache = tree.block_cache
     if cache is None:
-        raise RuntimeError("block_cell needs optimize_render_layout() first")
-    params, tree = model.gaussian.params(), model.tree_device()
-    cap, n = model.capacity, model.num_points
+        raise RuntimeError("block_cell needs build_block_cache() first")
+    params, arrays, cap, n = tree.params, tree.tree, tree.cap, tree.n
     H, W = cams[0]["image_height"], cams[0]["image_width"]
     B = cap // cache["S"]
     bg = torch.zeros(3, device=dev)
 
     def cull(cam):
         return fused_root_cull(
-            params, tree, cam, n, H, W, prep_backend="tiled",
+            params, arrays, cam, n, H, W, prep_backend="tiled",
             prep_max_pairs=pick_max_pairs(cap, per_point=1),
-            check_scale=CHECK_SCALE, n_roots=model.n_roots_bucket,
-            cap_sort=0)
+            check_scale=CHECK_SCALE, n_roots=tree.n_roots, cap_sort=0)
 
     def blocks(cam, w_full, k_blocks, k_visible, max_pairs):
         return render_blocks(

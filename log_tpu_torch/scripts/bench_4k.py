@@ -2,16 +2,26 @@
 scripts/bench_4k.py (BASELINE.json configs[4], the city-scale 4K
 fly-through).
 
-The block-pruned frame (`render_blocks` after `LoG.optimize_render_layout`,
-SH degree 0) over an orbit at focal 2800 (twice the 1080p scripts' focal:
-the same field of view at twice the pixels), the capacity-axis weight cull
-(`fused_root_cull`) every 4 frames, at min_res 96 (a realistic cut) and at
-min_res 3 (the dense cut), each through the honest loop of _common. The
-first and middle frames of the min_res 96 orbit are written as JPEG and the
-orbit as an mp4 (utils/image_io.make_video) under `out_dir`. Then one 4K
-frame of the tree's roots as a BaseGaussian from a close pose through
+The JAX script's scene: `padded_model_device(PRNGKey(0), 600_000, cap,
+"root_major")` (_common.PaddedTree, drawn on the card with the JAX
+package's random numbers; SH degree 0) and its block cache, with no `LoG`
+model; the JAX script's orbit (2 pi i / 26 at focal 2800: twice the 1080p
+scripts' focal, the same field of view at twice the pixels), of which a
+run with fewer frames takes the first poses. The block-pruned frame
+(`render_blocks`) with the capacity-axis weight cull (`fused_root_cull`)
+every 4 frames, at min_res 96 (a realistic cut) and at min_res 3 (the
+dense cut), each through the honest loop of _common. The first and middle
+frames of the min_res 96 orbit are written as JPEG and the orbit as an mp4
+(utils/image_io.make_video) under `out_dir`. Then one 4K frame of the
+tree's roots as a BaseGaussian from a close pose through
 `NaiveRendererAndLoss.render_one`, whose demand is logged against the
-2^23 rail: the frame must keep every pair.
+2^23 rail: the frame must keep every pair (a check of the port's own; the
+JAX script has no such frame).
+
+What still differs from the JAX script: the budgets. Its cull composites
+at most 1 << 19 pairs (ROADMAP fact an) and its block frames take the
+ladder of the sizing frames' demand; here every budget holds the measured
+demand (_common.honest_frames).
 
     python -m log_tpu_torch.scripts.bench_4k [n_roots] [frames]
 """
@@ -27,6 +37,7 @@ from . import _common as C
 
 H, W = 2160, 3840
 FOCAL = 2800.0
+ORBIT_TURNS = 26  # the JAX script's FRAMES + 2 poses around the orbit
 OUT_DIR = "output/bench4k_torch"
 CLOSE_POSE = {"theta": 0.3, "height": 4.5, "radius": 5.5}
 
@@ -67,18 +78,17 @@ def write_orbit(frame, cull, cams, frames: int, cull_every: int, max_pairs,
             "video": video if os.path.exists(video) else None}
 
 
-def vanilla_close_frame(ckpt: dict, n_roots: int, dev, h: int, w: int,
+def vanilla_close_frame(roots: dict, n_roots: int, dev, h: int, w: int,
                         focal: float, hold=None) -> dict:
-    """The roots as a BaseGaussian (SH 1) from CLOSE_POSE through
-    render_one: the frustum mask, the capacity's pair budget, and a second
-    binning at budget_for_demand(demand) where the frame needs more."""
+    """The roots (synth_tree.roots_record) as a BaseGaussian (SH 1) from
+    CLOSE_POSE through render_one: the frustum mask, the capacity's pair
+    budget, and a second binning at budget_for_demand(demand) where the
+    frame needs more."""
     from ..model.base_gaussian import BaseGaussian
     from ..ops import PAIR_RAIL
     from ..render.renderer import NaiveRendererAndLoss
-    from ..utils.synth_tree import roots_record
 
-    model = BaseGaussian.create_from_record(roots_record(ckpt, n_roots),
-                                            sh_degree=1, device=dev)
+    model = BaseGaussian.create_from_record(roots, sh_degree=1, device=dev)
     model.eval()
     model.set_state(enable_sh=True)
     renderer = NaiveRendererAndLoss(split="demo", device=dev)
@@ -105,22 +115,25 @@ def vanilla_close_frame(ckpt: dict, n_roots: int, dev, h: int, w: int,
 def run(n_roots: int = 600_000, frames: int = 24, h: int = H, w: int = W,
         focal: float = FOCAL, device=None, hold=None,
         out_dir: str = OUT_DIR) -> dict:
+    from ..utils.synth_tree import roots_record
+
     dev = C.resolve_device(device)
     tiles = check_grid(h, w)
-    model, ckpt, build_s, _ = C.load_tree(n_roots, dev)
-    model.set_state(active_sh_degree=0)
     t0 = time.perf_counter()
-    model.optimize_render_layout()
+    tree = C.PaddedTree(n_roots, dev)
+    C.sync(dev)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree.build_block_cache()
     C.sync(dev)
     out = {"metric": "fps_4k_3840x2160_blocks", "card": C.card_line(dev),
-           "n_roots": n_roots, "n_points": model.num_points,
-           "capacity": model.capacity, "h": h, "w": w, "focal": focal,
-           "tiles": list(tiles), "build_s": build_s,
-           "layout_s": time.perf_counter() - t0}
-    cams = C.orbit(frames + 2, h, w, focal, dev)
+           "n_roots": n_roots, "n_points": tree.n, "capacity": tree.cap,
+           "h": h, "w": w, "focal": focal, "tiles": list(tiles),
+           "build_s": build_s, "block_cache_s": time.perf_counter() - t0}
+    cams = C.orbit(frames + 2, h, w, focal, dev, turns=ORBIT_TURNS)
     for min_res, label in ((96.0, "minres96"), (3.0, "minres3")):
         cell, (frame, cull) = C.block_cell(
-            model, cams, min_res, frames, 4, dev, sizing=(8, 16), hold=hold,
+            tree, cams, min_res, frames, 4, dev, sizing=(8, 16), hold=hold,
             label=f"4k blocks {label}")
         if label == "minres96":
             cell.update(write_orbit(frame, cull, cams, frames, 4,
@@ -129,10 +142,12 @@ def run(n_roots: int = 600_000, frames: int = 24, h: int = H, w: int = W,
     out["value"] = out["minres96"]["fps"]
     out["budget_overflow"] = (out["minres96"]["budget_overflow"]
                               or out["minres3"]["budget_overflow"])
-    del model
+    roots = roots_record({f"gaussian.{k}": v[:n_roots].cpu().numpy()
+                          for k, v in tree.params.items()}, n_roots)
+    del tree, cell, frame, cull
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    out["vanilla_close"] = vanilla_close_frame(ckpt, n_roots, dev, h, w,
+    out["vanilla_close"] = vanilla_close_frame(roots, n_roots, dev, h, w,
                                                focal, hold)
     return out
 

@@ -1,10 +1,16 @@
 """The init-stage training step at 1920x1088 on 100k points; counterpart of
 scripts/bench_trainstep.py.
 
-The state is made from a numpy seed with the JAX script's distributions
-(positions over a 24 x 24 x 2 box, scales 0.05-0.3, opacities 0.3-0.9, SH
-zero), no tree: `k_leaf` is the capacity, so `fused_prepare_train_step`
-(the frustum test, then the step) takes the identity path. The JAX script
+The JAX script's state and GT, drawn on the device with the JAX package's
+random numbers (utils/jax_random.py) from its keys, `split(PRNGKey(0), 8)`:
+keys 0-6 draw positions over a 24 x 24 x 2 box, scales 0.05-0.3, rotations
+(normalized normals), opacities 0.3-0.9 and colors, SH zero; key 7 the GT,
+`uniform * 255` as uint8. No tree: `k_leaf` is the capacity, so
+`fused_prepare_train_step` (the frustum test, then the step) takes the
+identity path. The cameras are the JAX script's orbit (2 pi i / 22, height
+12, radius 16); a run with more than 22 steps goes round again. The JAX
+step also takes `PRNGKey(1)`, the key of its depth patches; the port's
+step takes no key where it renders no depth. The JAX script
 gives the step a pair budget of 8 tiles per point (`pick_max_pairs`),
 which this geometry's demand passes many times over (the step then drops
 the pairs past it); here the warm-up steps measure the demand and the
@@ -25,26 +31,39 @@ from . import _common as C
 
 H, W = 1088, 1920
 KEYS = ("xyz", "colors", "scaling", "opacity", "rotation", "shs")
+ORBIT_TURNS = 22  # the JAX script's STEPS + 2 poses around the orbit
 
 
-def make_state(n: int, cap: int, dev, seed: int = C.SEED) -> dict:
-    """Parameters of cap rows (all drawn; the first n alive)."""
-    rng = np.random.default_rng(seed)
+def state_keys(seed: int = C.SEED) -> np.ndarray:
+    """The JAX script's keys, jax.random.split(PRNGKey(seed), 8): 0-6 draw
+    the state, 7 the GT."""
+    from ..utils import jax_random as jr
+
+    return jr.split(jr.prng_key(seed), 8)
+
+
+def make_state(cap: int, dev, seed: int = C.SEED) -> dict:
+    """Parameters of cap rows (all drawn), the JAX script's gen_state."""
+    from ..utils import jax_random as jr
+
+    ks = state_keys(seed)
     ext = 12.0
-    q = rng.standard_normal((cap, 4))
-    opac = rng.uniform(0.3, 0.9, (cap, 1))
-    params = {
-        "xyz": np.stack([rng.uniform(-ext, ext, cap),
-                         rng.uniform(-ext, ext, cap),
-                         rng.uniform(0.0, 2.0, cap)], axis=1),
-        "colors": rng.uniform(0.0, 1.0, (cap, 3)) * 2 - 1,
-        "scaling": np.log(rng.uniform(0.05, 0.3, (cap, 3))),
-        "opacity": np.log(opac / (1 - opac)),
-        "rotation": q / np.linalg.norm(q, axis=1, keepdims=True),
-        "shs": np.zeros((cap, 3, 3)),
+
+    def uniform(k, shape, lo=0.0, hi=1.0):
+        return jr.uniform(ks[k], shape, lo, hi, dev)
+
+    q = jr.normal(ks[4], (cap, 4), dev)
+    opac = uniform(5, (cap, 1), 0.3, 0.9)
+    return {
+        "xyz": torch.stack([uniform(0, (cap,), -ext, ext),
+                            uniform(1, (cap,), -ext, ext),
+                            uniform(2, (cap,), 0.0, 2.0)], dim=1),
+        "colors": uniform(6, (cap, 3)) * 2 - 1,
+        "scaling": torch.log(uniform(3, (cap, 3), 0.05, 0.3)),
+        "opacity": torch.log(opac / (1 - opac)),
+        "rotation": q / torch.linalg.norm(q, dim=1, keepdim=True),
+        "shs": torch.zeros((cap, 3, 3), device=dev),
     }
-    return {k: torch.from_numpy(v.astype(np.float32)).to(dev)
-            for k, v in params.items()}
 
 
 def step_inputs(params: dict, dev, lr: float = 1e-3):
@@ -65,10 +84,12 @@ def step_inputs(params: dict, dev, lr: float = 1e-3):
              "steps": torch.zeros((1,), dtype=torch.int32, device=dev)})
 
 
-def random_gt(h: int, w: int, dev, seed: int = 7):
-    rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.integers(0, 256, (3, h, w),
-                                         dtype=np.uint8)).to(dev)
+def random_gt(h: int, w: int, dev, key) -> torch.Tensor:
+    """The JAX scripts' 8-bit GT: (uniform(key, (3, h, w)) * 255) as
+    uint8."""
+    from ..utils import jax_random as jr
+
+    return (jr.uniform(key, (3, h, w), device=dev) * 255).to(torch.uint8)
 
 
 def run(n_points: int = 100_000, steps: int = 20, warmup: int = 2,
@@ -80,7 +101,7 @@ def run(n_points: int = 100_000, steps: int = 20, warmup: int = 2,
 
     dev = C.resolve_device(device)
     cap = next_capacity(n_points)
-    params = make_state(n_points, cap, dev)
+    params = make_state(cap, dev)
     moments, counter, lrs, corr = step_inputs(params, dev)
     zeros = torch.zeros(cap, dtype=torch.int32, device=dev)
     tree = {"node_index": zeros, "index_parent": zeros, "depth": zeros}
@@ -89,8 +110,8 @@ def run(n_points: int = 100_000, steps: int = 20, warmup: int = 2,
                      sh_degree=0, mode="antialias", backend="tiled",
                      max_pairs=pick_max_pairs(k_bucket))
     cams = C.orbit(steps + warmup + 1, h, w, focal, dev, height=12.0,
-                   radius=16.0)
-    gt = random_gt(h, w, dev)
+                   radius=16.0, turns=ORBIT_TURNS)
+    gt = random_gt(h, w, dev, state_keys()[7])
     bg = torch.zeros(3, device=dev)
     ones = torch.ones((1, 1, 1), device=dev)
     leaf_opt = torch.zeros(cap, dtype=torch.bool, device=dev)

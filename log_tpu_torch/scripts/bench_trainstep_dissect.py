@@ -2,9 +2,10 @@
 init-stage step at 1920x1088; counterpart of
 scripts/bench_trainstep_dissect.py.
 
-The state is bench_trainstep's (100k random points over 24 x 24 x 2, no
-tree, SH 0) after its two warm-up steps, so the step takes the identity
-path and its ~21.6M pairs a step pass 2^24: the unpacked route, K3. Each
+The state is bench_trainstep's (the JAX script's 100k random points over
+24 x 24 x 2 and its GT, no tree, SH 0) after its two warm-up steps, so
+the step takes the identity path and its ~21.6M pairs a step pass 2^24:
+the unpacked route, K3. Each
 prefix runs the port's own stages from that same state
 (`train_step.prepare_visibility`, then `train_step.train_step_stages`,
 whose `run_stages` is the step itself):
@@ -41,7 +42,8 @@ import argparse
 import torch
 
 from . import _common as C
-from .bench_trainstep import H, W, make_state, random_gt, step_inputs
+from .bench_trainstep import (H, W, make_state, random_gt, state_keys,
+                              step_inputs)
 
 PREFIXES = ("prep", "compact", "fwd", "fwd_l1", "fwd_loss", "fwd_bwd_l1",
             "fwd_bwd", "full")
@@ -57,7 +59,7 @@ class StepDissector:
 
         self.dev, self.n = dev, n_points
         self.cap = cap = next_capacity(n_points)
-        self.params = make_state(n_points, cap, dev)
+        self.params = make_state(cap, dev)
         (self.moments, self.counter, self.lrs,
          self.corr) = step_inputs(self.params, dev)
         zeros = torch.zeros(cap, dtype=torch.int32, device=dev)
@@ -69,7 +71,7 @@ class StepDissector:
                               mode="antialias", backend="tiled",
                               max_pairs=pick_max_pairs(self.k_bucket))
         self.cams = C.orbit(24, h, w, focal, dev, height=12.0, radius=16.0)
-        self.gt = random_gt(h, w, dev)
+        self.gt = random_gt(h, w, dev, state_keys()[7])
         self.bg = torch.zeros(3, device=dev)
         self.ones = torch.ones((1, 1, 1), device=dev)
         self.leaf_opt = torch.zeros(cap, dtype=torch.bool, device=dev)

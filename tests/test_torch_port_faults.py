@@ -403,16 +403,16 @@ def test_flat_slice_past_the_packed_limit_takes_k3(monkeypatch):
     from log_tpu_torch.scripts import _common as C
 
     monkeypatch.setenv("LOG_TPU_PACK_SORT_KEYS", "0")
-    model, _, _, _ = C.load_tree(6000, "cpu")
-    n, cap = model.num_points, model.capacity
+    tree = C.PaddedTree(6000, "cpu")
+    n, cap = tree.n, tree.cap
     cam = C.orbit(1, 64, 256, 120.0, "cpu")[0]
     kw = dict(image_height=64, image_width=256, k_visible=rt.PACK_CHUNK,
               sh_degree=0, stage_has_tree=True, num_levels=3,
               backend="tiled", max_pairs=1 << 16, check_scale=4,
-              cut_method="flat_slice", n_roots=model.n_roots_bucket,
+              cut_method="flat_slice", n_roots=tree.n_roots,
               prep_backend="tiled", prep_max_pairs=1 << 15, check_cull=False)
-    args = (model.gaussian.params(), model.tree_device(), cam, n,
-            model._leaf_opt_dev, 3.0, 20, torch.zeros(3))
+    args = (tree.params, tree.tree, cam, n, tree.leaf, 3.0, 20,
+            torch.zeros(3))
     calls = []
     real = ex.expand_packed_with_keys
 

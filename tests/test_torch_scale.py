@@ -3,8 +3,14 @@
 Each script's run(device="cpu") completes at a small size (600 roots or
 1,000 points, frames of 32x128) with its device-memory fields null, and no
 timed frame's pair demand above its budget. `budget_for_demand` and
-`tree_sizes` are held against the JAX package. The capacity script's block
-frame, fused frame and tree-stage step, on a tiny checkpoint loaded into
+`tree_sizes` are held against the JAX package. The scripts' scenes are the JAX
+scripts' own: bench_trainstep's state and GT against the JAX script's
+draws from split(PRNGKey(0), 8) (uniform draws bit for bit, the normal
+draws and the logs within 4 ulps of each key's largest value), and the
+tree of bench_4k and bench_capacity against padded_model_device(PRNGKey(0),
+n, cap, "root_major") (integer arrays exactly, float arrays likewise
+within 4 ulps). The capacity script's block frame, fused frame and
+tree-stage step, on its scene at 600 roots with the same arrays given to
 both packages, are held against log_tpu: the frames to ROADMAP fact o's
 packed bound (max 3e-2, at most 0.1% of the pixels past 1e-2, as
 tests/test_torch_flat_slice.py), the step to tests/test_torch_train_step.py's
@@ -25,8 +31,8 @@ from log_tpu.model import block_render as br_jax
 from log_tpu.model import train_step as ts_jax
 from log_tpu.model.counter import init_counter as init_counter_jax
 from log_tpu.model.gaussian import next_capacity as next_capacity_jax
-from log_tpu.model.level_of_gaussian import LoG as LoGJax
 from log_tpu.render.renderer import camera_device as camera_jax
+from log_tpu.utils.synth_tree import padded_model_device
 from log_tpu.utils.synth_tree import tree_sizes as tree_sizes_jax
 from log_tpu_torch import ops
 from log_tpu_torch.model.counter import COUNTER_KEYS
@@ -34,7 +40,6 @@ from log_tpu_torch.model.gaussian import next_capacity
 from log_tpu_torch.scripts import _common as C
 from log_tpu_torch.scripts import (bench_4k, bench_capacity, bench_spill,
                                    bench_trainstep)
-from log_tpu_torch.utils.config import load_object
 from log_tpu_torch.utils.synth_tree import build_checkpoint, tree_sizes
 
 from test_torch_train_step import (assert_counters_close,
@@ -181,22 +186,105 @@ def test_4k_grid_fits_the_rect_geometry():
         bench_4k.check_grid(2160, 4224)
 
 
+# ------------------------------------------ the JAX scripts' own scenes
+def _ulps(got, want, key):
+    """got within 4 ulps of want's largest magnitude."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype, key
+    gap = np.abs(got.astype(np.float64) - want).max()
+    assert gap <= 4 * np.spacing(np.abs(want).max()), (key, gap)
+
+
+def test_trainstep_state_is_the_jax_scripts():
+    """make_state and random_gt against scripts/bench_trainstep.py's
+    gen_state and GT, rebuilt here from the same keys."""
+    cap, h, w = next_capacity(1000), 24, 40
+    ks = jax.random.split(jax.random.PRNGKey(0), 8)
+
+    @jax.jit
+    def gen_state():
+        ext = 12.0
+        xyz = jnp.stack([
+            jax.random.uniform(ks[0], (cap,), minval=-ext, maxval=ext),
+            jax.random.uniform(ks[1], (cap,), minval=-ext, maxval=ext),
+            jax.random.uniform(ks[2], (cap,), minval=0.0, maxval=2.0),
+        ], axis=1)
+        scal = jnp.log(
+            jax.random.uniform(ks[3], (cap, 3), minval=0.05, maxval=0.3))
+        q = jax.random.normal(ks[4], (cap, 4))
+        opac = jax.random.uniform(ks[5], (cap, 1), minval=0.3, maxval=0.9)
+        return {"xyz": xyz,
+                "colors": jax.random.uniform(ks[6], (cap, 3)) * 2 - 1,
+                "scaling": scal, "opacity": jnp.log(opac / (1 - opac)),
+                "rotation": q / jnp.linalg.norm(q, axis=1, keepdims=True),
+                "shs": jnp.zeros((cap, 3, 3))}
+
+    want = gen_state()
+    got = bench_trainstep.make_state(cap, "cpu")
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(bench_trainstep.state_keys(),
+                                  np.asarray(ks))
+    for k in ("xyz", "colors", "shs"):  # uniform draws: bit for bit
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    for k in ("scaling", "opacity", "rotation"):
+        _ulps(got[k].numpy(), want[k], k)
+    gt_j = jax.jit(lambda: (jax.random.uniform(ks[7], (3, h, w)) * 255)
+                   .astype(jnp.uint8))()
+    gt = bench_trainstep.random_gt(h, w, "cpu", bench_trainstep.state_keys()[7])
+    assert gt.dtype == torch.uint8
+    np.testing.assert_array_equal(gt.numpy(), np.asarray(gt_j))
+    assert len(np.unique(gt.numpy())) > 200
+
+
+def test_scale_scene_is_padded_model_device():
+    """The tree of bench_4k and bench_capacity (_common.PaddedTree) against
+    scripts/bench_4k.py:82-84's padded_model_device(PRNGKey(0), n_roots,
+    cap, "root_major"), every array of the parameters and the tree."""
+    n_roots = 1000
+    tree = C.PaddedTree(n_roots, "cpu")
+    n = tree_sizes_jax(n_roots)[2]
+    cap = next_capacity_jax(n)
+    assert (tree.n, tree.cap) == (n, cap)
+    assert tree.n_roots == min(next_capacity_jax(n_roots), cap)
+    assert tree.num_levels == 3  # the JAX capacity script's num_levels
+    params_j, tree_j, leaf_j = padded_model_device(
+        jax.random.PRNGKey(0), n_roots, cap, "root_major")
+    np.testing.assert_array_equal(tree.leaf.numpy(), np.asarray(leaf_j))
+    assert set(tree.tree) == set(tree_j) and set(tree.params) == set(params_j)
+    for k, v in tree_j.items():
+        if np.issubdtype(np.asarray(v).dtype, np.integer):
+            np.testing.assert_array_equal(tree.tree[k].numpy(),
+                                          np.asarray(v), err_msg=k)
+        else:
+            _ulps(tree.tree[k].numpy(), v, k)
+    for k, v in params_j.items():
+        _ulps(tree.params[k].numpy(), v, k)
+    np.testing.assert_array_equal(tree.params["colors"].numpy(),
+                                  np.asarray(params_j["colors"]))
+    tree.build_block_cache()
+    assert tree.block_cache["S"] == br_jax.block_size_for(cap)
+
+
 # ------------------------------------- the capacity cells against log_tpu
 N_ROOTS = 600
 XH, XW, XFOCAL = 64, 256, 120.0  # a cut with leaves at min_res 3
 
 
-def _models():
-    ckpt = build_checkpoint(N_ROOTS, seed=1)
-    port = load_object("LoG.model.level_of_gaussian.LoG", C.MODEL_ARGS,
-                       device="cpu")
-    ref = LoGJax(**C.MODEL_ARGS)
-    for m in (port, ref):
-        m.load_state_dict(ckpt)
-        m.set_state(active_sh_degree=0)
-        m.eval()
-        m.optimize_render_layout()
-    return port, ref
+def _trees():
+    """The capacity script's scene at N_ROOTS (_common.PaddedTree with its
+    block cache) and the same arrays in JAX with the JAX script's block
+    cache (scripts/bench_capacity.py: build_block_cache on the padded
+    root_major arrays)."""
+    port = C.PaddedTree(N_ROOTS, "cpu")
+    port.build_block_cache()
+    params_j = {k: jnp.asarray(v.numpy()) for k, v in port.params.items()}
+    tree_j = {k: jnp.asarray(v.numpy()) for k, v in port.tree.items()}
+    leaf_j = jnp.asarray(port.leaf.numpy())
+    cols_j, meta_j = br_jax.build_block_cache(
+        params_j, tree_j, leaf_j, jnp.int32(port.n),
+        br_jax.block_size_for(port.cap))
+    return port, (params_j, tree_j, leaf_j, cols_j, meta_j)
 
 
 def _cams(n):
@@ -211,18 +299,17 @@ def _assert_packed_close(got, want):
 
 
 def test_capacity_cells_match_jax():
-    port, ref = _models()
+    port, (params_j, tree_j, leaf_j, cols_j, meta_j) = _trees()
     dev = torch.device("cpu")
     cams, cams_j = _cams(4)
-    n, cap = port.num_points, port.capacity
-    params_j, tree_j = ref.gaussian.params(), ref.tree_device()
+    n, cap = port.n, port.cap
 
     def cull_j(cam_j, cap_sort):
         return ts_jax.fused_root_cull(
             params_j, tree_j, cam_j, jnp.int32(n), XH, XW,
             prep_backend="tiled",
             prep_max_pairs=ops_jax.pick_max_pairs(cap, per_point=1),
-            check_scale=C.CHECK_SCALE, n_roots=ref.n_roots_bucket,
+            check_scale=C.CHECK_SCALE, n_roots=port.n_roots,
             cap_sort=cap_sort)
 
     # the block frame, at the cell's own buckets and budget
@@ -233,7 +320,7 @@ def test_capacity_cells_match_jax():
     np.testing.assert_array_equal(w.numpy(), np.asarray(w_j))
     img, counts = frame(cams[2], w, cell["max_pairs"])
     img_j, _, counts_j = br_jax.render_blocks(
-        ref._block_cache["cols"], ref._block_cache["meta"], cams_j[2],
+        cols_j, meta_j, cams_j[2],
         jnp.float32(3.0), jnp.int32(C.CURRENT_DEPTH),
         jnp.zeros(3, jnp.float32), XH, XW, k_blocks=cell["k_blocks"],
         k_visible=cell["k_vis"], max_pairs=cell["max_pairs"], w_full=w_j)
@@ -251,13 +338,13 @@ def test_capacity_cells_match_jax():
     np.testing.assert_array_equal(w.numpy(), np.asarray(w_j))
     img, counts = frame_f(cams[2], w, cell_f["max_pairs"])
     img_j, _, counts_j = ts_jax.fused_prepare_render(
-        params_j, tree_j, cams_j[2], jnp.int32(n), ref._leaf_opt_dev,
+        params_j, tree_j, cams_j[2], jnp.int32(n), leaf_j,
         jnp.float32(96.0), jnp.int32(C.CURRENT_DEPTH),
         jnp.zeros(3, jnp.float32), XH, XW, k_visible=cell_f["k_vis"],
-        sh_degree=0, stage_has_tree=True,
-        num_levels=int(ref.tree.depth.max()) + 1, backend="tiled",
-        max_pairs=cell_f["max_pairs"], check_scale=C.CHECK_SCALE,
-        cut_method="flat_slice", n_roots=ref.n_roots_bucket,
+        sh_degree=0, stage_has_tree=True, num_levels=port.num_levels,
+        backend="tiled", max_pairs=cell_f["max_pairs"],
+        check_scale=C.CHECK_SCALE, cut_method="flat_slice",
+        n_roots=port.n_roots,
         prep_backend="tiled",
         prep_max_pairs=ops_jax.pick_max_pairs(cap, per_point=1),
         cap_sort=cell_f["cap_sort"], w_full=w_j)
@@ -269,7 +356,9 @@ def test_capacity_cells_match_jax():
     # rows a tree-stage step updates), with buckets that hold every row
     step, state, cfg = bench_capacity.make_step(port, cams, n, n, dev,
                                                 min_res=3.0)
-    gt = bench_trainstep.random_gt(XH, XW, dev).numpy()
+    # the JAX script's GT: the port's step must have drawn the same
+    gt_j = (jax.random.uniform(jax.random.PRNGKey(bench_capacity.GT_SEED),
+                               (3, XH, XW)) * 255).astype(jnp.uint8)
     met = step(0, cfg)
     moments_j = {mk: {k: jnp.zeros_like(v) for k, v in params_j.items()}
                  for mk in ("exp_avg", "exp_avg_sq")}
@@ -279,19 +368,19 @@ def test_capacity_cells_match_jax():
     p_j, m_j, c_j, _, met_j, _ = ts_jax.fused_prepare_train_step(
         params_j, moments_j,
         {k: jnp.asarray(v) for k, v in init_counter_jax(cap).items()},
-        tree_j, jnp.int32(n), ref._leaf_opt_dev, jnp.float32(3.0),
-        jnp.int32(C.CURRENT_DEPTH), cams_j[0], jnp.asarray(gt),
+        tree_j, jnp.int32(n), leaf_j, jnp.float32(3.0),
+        jnp.int32(C.CURRENT_DEPTH), cams_j[0], gt_j,
         jnp.zeros(3), {k: jnp.float32(1e-3) for k in params_j},
         jnp.float32(1), corr, jnp.int32(0), jnp.ones((1, 1, 1)),
         jnp.ones((1, 1)), jax.random.PRNGKey(1), stage_has_tree=True,
-        num_levels=int(ref.tree.depth.max()) + 1, prep_backend="tiled",
+        num_levels=port.num_levels, prep_backend="tiled",
         prep_max_pairs=ops_jax.pick_max_pairs(cap),
         check_scale=C.CHECK_SCALE,
         cfg=ts_jax.StepConfig(
             image_height=XH, image_width=XW, k_leaf=cfg.k_leaf,
             k_node=cfg.k_node, sh_degree=0, mode="antialias",
             backend="tiled", max_pairs=cfg.max_pairs),
-        cut_method="flat", n_roots=ref.n_roots_bucket)
+        cut_method="flat", n_roots=port.n_roots)
     assert int(met["counts"][0]) > 100 and int(met["pair_total"]) > 0
     assert abs(float(met["loss"]) - float(met_j["loss"])) <= 1e-5
     assert_moments_close(state[1], m_j, n)
