@@ -1,0 +1,71 @@
+"""Fixtures of the benchmark's CPU tests: the cells shrunk to a tiny tree
+and image, run through the harness on the CPU (the port's tiled path with
+the plain versions of its kernels)."""
+from __future__ import annotations
+
+import copy
+import json
+import sys
+import time
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+SEED = 2 ** 31 + 977   # past 32 signed bits, as a run's seed may be
+
+
+def bench() -> dict:
+    return json.loads((ROOT / "BENCHMARK.json").read_text())
+
+
+def cell_files(cell: str):
+    """(workload entry, configuration, traffic) of a cell, as loaded by
+    name."""
+    b = bench()
+    wl = {w["name"]: w for w in b["workloads"]}[cell]
+    conf = {c["name"]: c for c in b["configs"]}[wl["config"]]
+    cfg = json.loads((ROOT / conf["file"]).read_text())
+    tr = json.loads((ROOT / "benchmark" / "traffic" / f"{wl['traffic']}.json")
+                    .read_text())
+    return wl, cfg, tr
+
+
+def shrink(cfg: dict, tr: dict):
+    """The cell at a size a CPU test holds: 2,000 roots (10,800 points), a
+    64 x 256 image at focal 300, a few frames or steps."""
+    cfg, tr = copy.deepcopy(cfg), copy.deepcopy(tr)
+    cfg["scene"]["n_roots"] = 2000
+    cfg["camera"] = {"height": 64, "width": 256, "focal": 300.0}
+    if tr["kind"] == "flythrough":
+        tr.update(poses=8, warmup_frames=2, trace_frames=2, check_frames=2)
+    else:
+        tr.update(views=4, warmup_steps=3, trace_steps=2)
+    return cfg, tr
+
+
+@pytest.fixture
+def cpu_tiled(monkeypatch):
+    """The port's tiled path on the CPU, whatever the tree's size."""
+    monkeypatch.setenv("LOG_TPU_BACKEND", "tiled")
+
+
+@pytest.fixture
+def run_cell(cpu_tiled):
+    """run_cell(cell, trace=0, seed=SEED) -> (exit code, result line) of the
+    shrunk cell on the CPU, through runner.execute."""
+    import torch
+
+    from benchmark.harness import runner
+
+    def run(cell: str, trace: int = 0, seed: int = SEED):
+        wl, cfg, tr = cell_files(cell)
+        cfg, tr = shrink(cfg, tr)
+        ctx = runner.Ctx(cell, cfg, tr, torch.device("cpu"), seed, 0.2,
+                         bool(trace), time.time())
+        return runner.execute(ctx, bench(), wl)
+
+    return run
