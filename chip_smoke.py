@@ -1605,7 +1605,7 @@ def profile_window(label, run, n, wall_ms, log, ranges=False):
     """n calls of run(i) under torch.profiler: device busy per call (the sum
     of kernel time) against wall_ms, the median un-profiled call, and the
     top kernels; the full table goes to build/{label}_profile.txt. ranges:
-    also list the training step's labelled ranges (record_function)."""
+    also list the port's spans (utils/profiler.py's span)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1625,15 +1625,17 @@ def report_profile(label, prof, n, wall_ms, log, ranges=False):
 
     from torch.autograd import DeviceType
 
+    from log_tpu_torch.utils.profiler import is_span
+
     avgs = prof.key_averages()
 
     def dev_ms(e):  # per call
         return _self_device_us(e) / 1e3 / n
 
-    # the step's record_function ranges also appear on the device side (as
-    # spans); they are not kernels
+    # the port's spans also appear on the device side; they are not
+    # kernels
     kernels_ = [e for e in avgs if e.device_type == DeviceType.CUDA
-                and not e.key.startswith("train_step.")]
+                and not is_span(e.key)]
     busy = sum(dev_ms(e) for e in kernels_)
     os.makedirs("build", exist_ok=True)
     with open(f"build/{label}_profile.txt", "w") as f:
@@ -1652,7 +1654,7 @@ def report_profile(label, prof, n, wall_ms, log, ranges=False):
     # them (the backward's kernels run on autograd's thread, outside);
     # device-side ranges: their span on the device timeline
     for e in sorted(avgs, key=lambda e: (e.key, str(e.device_type))):
-        if e.key.startswith("train_step.") or e.key in (
+        if is_span(e.key) or e.key in (
                 "aten::sort", "aten::scatter_reduce_", "aten::cumsum"):
             if e.device_type == DeviceType.CUDA:
                 what, ms = "span", dev_ms(e)

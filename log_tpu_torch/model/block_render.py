@@ -306,5 +306,5 @@ def render_blocks(cols, meta: dict, cam: dict, min_resolution_pixel,
     s = run_stages(block_stages(
         cols, meta, cam, min_resolution_pixel, current_depth, background,
         image_height, image_width, k_blocks, k_visible, max_pairs, w_full,
-        mode, use_filter))
+        mode, use_filter), prefix="block")
     return s["render"], s["alpha"], s["counts"]

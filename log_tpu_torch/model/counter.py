@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiler import span
 from .gaussian import pad_rows
 
 COUNTER_KEYS = (
@@ -95,7 +96,10 @@ def update_counter(counter: dict, visible_index, radii, point_weight,
     pid = point_id_pixel.reshape(-1).to(torch.int64)
     pid = torch.where(pid >= 0, pid, K)  # -1 would wrap; push out of range
     # per-lane pixel ownership count (the reference's torch.unique counts)
-    point_count = torch.bincount(pid, minlength=K + 1)[:K].to(torch.int32)
+    # bincount waits for the device twice (its min and its max): a span
+    # for each wait
+    with span("sync.counter_bincount"), span("sync.counter_bincount"):
+        point_count = torch.bincount(pid, minlength=K + 1)[:K].to(torch.int32)
 
     flag_vis = radii > 0
     grad_norm = torch.sqrt(torch.sum(grad_means2d[:, :2] ** 2, dim=-1))

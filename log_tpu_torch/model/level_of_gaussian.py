@@ -23,6 +23,7 @@ from ..ops import gaussian_math as gm
 from ..ops import pick_backend, pick_max_pairs
 from ..render.loss import draw_patch_offsets
 from ..utils import jax_random
+from ..utils.profiler import span
 from . import densify_device as dd
 from .block_render import block_size_for, build_block_cache, render_blocks
 from .corrector import Corrector
@@ -379,10 +380,11 @@ class LoG:
         if fg_mask is not None:
             fg_dev, bbox = _fg_mask_bbox(fg_mask, cam["image_height"],
                                          cam["image_width"], dev)
+        with span("sync.step_background"):
+            bg = torch.as_tensor(np.asarray(background, np.float32),
+                                 device=dev)
         return dict(
-            gt=torch.as_tensor(gt_image, device=dev),
-            background=torch.as_tensor(np.asarray(background, np.float32),
-                                       device=dev),
+            gt=torch.as_tensor(gt_image, device=dev), background=bg,
             lrs=host_lrs, global_step=float(step), corr_state=corr_state,
             mask_ignore=(torch.as_tensor(mask_ignore, device=dev)[None]
                          if mask_ignore is not None
@@ -452,69 +454,75 @@ class LoG:
         """
         from ..render.renderer import camera_device
 
-        if self.optimizer is not None and self.optimizer.spilled:
-            # spilled moments: the host needs the step's rows before the
-            # step, so the visibility pass runs on its own first
-            self.prepare_from_camera(camera)
-            return self.train_step(
-                camera, gt_image, background, mask_ignore=mask_ignore,
-                view_index=view_index, gt_depth=gt_depth,
-                render_depth=render_depth, fg_mask=fg_mask,
+        with span("training_iteration"):
+            if self.optimizer is not None and self.optimizer.spilled:
+                # spilled moments: the host needs the step's rows before
+                # the step, so the visibility pass runs on its own first
+                self.prepare_from_camera(camera)
+                return self.train_step(
+                    camera, gt_image, background, mask_ignore=mask_ignore,
+                    view_index=view_index, gt_depth=gt_depth,
+                    render_depth=render_depth, fg_mask=fg_mask,
+                )
+            if self._bucket is None:
+                vf = self.prepare_from_camera(camera)
+                self._bucket = (vf["k_leaf"], vf["k_node"])
+                return self.train_step(
+                    camera, gt_image, background, mask_ignore=mask_ignore,
+                    view_index=view_index, gt_depth=gt_depth,
+                    render_depth=render_depth, fg_mask=fg_mask,
+                )
+            with span("training_iteration.inputs"):
+                if self._counts_dev is not None:
+                    with span("sync.training_iteration_buckets"):
+                        c = self._counts_dev.cpu().numpy()
+                    k_leaf = next_capacity(int(c[0]), 256)
+                    k_node = (0 if int(c[1]) == 0
+                              else next_capacity(int(c[1]), 256))
+                    bl, bn = self._bucket
+                    if k_leaf > bl or k_leaf * 2 < bl:
+                        bl = k_leaf
+                    if k_node > bn or k_node * 2 < bn:
+                        bn = k_node
+                    self._bucket = (bl, bn)
+                if self.optimizer is None:
+                    raise RuntimeError("call training_setup first")
+                cam = camera_device(camera, self.device)
+                stage_has_tree = self.tree.num_nodes > 0
+                if stage_has_tree and self._tree_dev is None:
+                    self._refresh_device_caches()
+                tree_arrays, num_levels = self._tree_args(stage_has_tree)
+                leaf_opt = (self._leaf_opt_dev if stage_has_tree else
+                            torch.zeros(self.capacity, dtype=torch.bool,
+                                        device=self.device))
+                k_leaf, k_node = self._bucket
+                cfg = self._step_config(cam, k_leaf, k_node, mask_ignore,
+                                        render_depth and gt_depth is not None,
+                                        fg_mask)
+                inputs = self._step_inputs(cam, cfg, gt_image, background,
+                                           mask_ignore, fg_mask, gt_depth)
+            params, moments, counter, corr_state, metrics, aux = (
+                fused_prepare_train_step(
+                    self.gaussian.params(), self.optimizer.moments,
+                    self.counter.data, tree_arrays, self.num_points,
+                    leaf_opt, float(self.tree.min_resolution_pixel),
+                    self.current_depth, cam, view_index=view_index,
+                    stage_has_tree=stage_has_tree, num_levels=num_levels,
+                    prep_backend=pick_backend(self.capacity,
+                                              device=self.device),
+                    prep_max_pairs=pick_max_pairs(self.capacity),
+                    check_scale=int(self.check_render_scale), cfg=cfg,
+                    cut_method=(self.cut_method_train if stage_has_tree
+                                else "traverse"),
+                    n_roots=self.n_roots_bucket if stage_has_tree else 0,
+                    **inputs,
+                )
             )
-        if self._bucket is None:
-            vf = self.prepare_from_camera(camera)
-            self._bucket = (vf["k_leaf"], vf["k_node"])
-            return self.train_step(
-                camera, gt_image, background, mask_ignore=mask_ignore,
-                view_index=view_index, gt_depth=gt_depth,
-                render_depth=render_depth, fg_mask=fg_mask,
-            )
-        if self._counts_dev is not None:
-            c = self._counts_dev.cpu().numpy()
-            k_leaf = next_capacity(int(c[0]), 256)
-            k_node = 0 if int(c[1]) == 0 else next_capacity(int(c[1]), 256)
-            bl, bn = self._bucket
-            if k_leaf > bl or k_leaf * 2 < bl:
-                bl = k_leaf
-            if k_node > bn or k_node * 2 < bn:
-                bn = k_node
-            self._bucket = (bl, bn)
-        if self.optimizer is None:
-            raise RuntimeError("call training_setup first")
-        cam = camera_device(camera, self.device)
-        stage_has_tree = self.tree.num_nodes > 0
-        if stage_has_tree and self._tree_dev is None:
-            self._refresh_device_caches()
-        tree_arrays, num_levels = self._tree_args(stage_has_tree)
-        leaf_opt = (self._leaf_opt_dev if stage_has_tree else
-                    torch.zeros(self.capacity, dtype=torch.bool,
-                                device=self.device))
-        k_leaf, k_node = self._bucket
-        cfg = self._step_config(cam, k_leaf, k_node, mask_ignore,
-                                render_depth and gt_depth is not None,
-                                fg_mask)
-        inputs = self._step_inputs(cam, cfg, gt_image, background,
-                                   mask_ignore, fg_mask, gt_depth)
-        params, moments, counter, corr_state, metrics, aux = (
-            fused_prepare_train_step(
-                self.gaussian.params(), self.optimizer.moments,
-                self.counter.data, tree_arrays, self.num_points, leaf_opt,
-                float(self.tree.min_resolution_pixel), self.current_depth,
-                cam, view_index=view_index, stage_has_tree=stage_has_tree,
-                num_levels=num_levels,
-                prep_backend=pick_backend(self.capacity, device=self.device),
-                prep_max_pairs=pick_max_pairs(self.capacity),
-                check_scale=int(self.check_render_scale), cfg=cfg,
-                cut_method=(self.cut_method_train if stage_has_tree
-                            else "traverse"),
-                n_roots=self.n_roots_bucket if stage_has_tree else 0,
-                **inputs,
-            )
-        )
-        self._apply_step(cfg, params, moments, counter, corr_state)
-        self._counts_dev = metrics["counts"]
-        self.visibility_flag = {"keep_mask": aux["keep_mask"]}
-        return metrics, aux
+            with span("training_iteration.apply"):
+                self._apply_step(cfg, params, moments, counter, corr_state)
+                self._counts_dev = metrics["counts"]
+                self.visibility_flag = {"keep_mask": aux["keep_mask"]}
+            return metrics, aux
 
     def _corr_device_state(self) -> dict:
         """The per-view gain Adam state on the device (built from the host
@@ -563,106 +571,131 @@ class LoG:
         """
         from ..render.renderer import camera_device
 
-        cam = camera_device(camera, self.device)
-        stage_has_tree = self.tree.num_nodes > 0
-        if self._tree_dev is None or (
-            stage_has_tree
-            and self.cut_method in ("flat", "flat_slice")
-            and "parent_xyz" not in self._tree_dev
-        ):
-            self._refresh_device_caches()
+        with span("render_fused"):
+            with span("render_fused.inputs"):
+                cam = camera_device(camera, self.device)
+                stage_has_tree = self.tree.num_nodes > 0
+                if self._tree_dev is None or (
+                    stage_has_tree
+                    and self.cut_method in ("flat", "flat_slice")
+                    and "parent_xyz" not in self._tree_dev
+                ):
+                    self._refresh_device_caches()
+                self._update_frame_buckets(camera)
+                # static alive bucket: the capacity-axis passes run over
+                # [:cap_sort]
+                cap_sort = min(self.capacity,
+                               -(-self.num_points // (1 << 18)) * (1 << 18))
+                k_vis = min(self._render_bucket, self.capacity, cap_sort)
+                backend = pick_backend(self.capacity, device=self.device)
+                tree_arrays, num_levels = self._tree_args(stage_has_tree)
+                max_pairs = pick_max_pairs(k_vis, per_point=6)
+                frame_pairs = min(max_pairs, self._pair_bucket or max_pairs)
+                with span("sync.render_fused_background"):
+                    bg = torch.as_tensor(np.asarray(background, np.float32),
+                                         device=self.device)
+                flat_slice = (stage_has_tree
+                              and self.cut_method == "flat_slice")
+                # the block-pruned frame needs the optimized layout, SH
+                # degree 0 and a capacity past 2^16; otherwise the fused
+                # flat_slice frame
+                use_blocks = (self._layout_optimized
+                              and self._block_cache is not None
+                              and flat_slice
+                              and self.gaussian.active_sh_degree == 0
+                              and backend == "tiled"
+                              and self.capacity >= 1 << 16)
+            w_full = None
+            if flat_slice:
+                # cull first, as the reference orders it: the capacity-axis
+                # mask is refreshed every check_render_every frames (every
+                # frame by default), at full capacity for the block path
+                cull_bucket = 0 if use_blocks else cap_sort
+                if (self._cull_mask_dev is None
+                        or self._cull_bucket != cull_bucket
+                        or self._cull_frame_i % self.check_render_every == 0):
+                    with span("render_fused.cull"):
+                        self._cull_mask_dev = fused_root_cull(
+                            self.gaussian.params(), tree_arrays, cam,
+                            self.num_points, cam["image_height"],
+                            cam["image_width"], prep_backend=backend,
+                            prep_max_pairs=pick_max_pairs(self.capacity,
+                                                          per_point=1),
+                            check_scale=int(self.check_render_scale),
+                            n_roots=self.n_roots_bucket,
+                            cap_sort=cull_bucket,
+                        )
+                    self._cull_bucket = cull_bucket
+                self._cull_frame_i += 1
+                w_full = self._cull_mask_dev
+            with span("render_fused.frame"):
+                if use_blocks:
+                    B = self.capacity // self._block_cache["S"]
+                    render, alpha, counts = render_blocks(
+                        self._block_cache["cols"], self._block_cache["meta"],
+                        cam, float(self.tree.min_resolution_pixel),
+                        self.current_depth, bg, cam["image_height"],
+                        cam["image_width"], k_blocks=self._kb_bucket or B,
+                        k_visible=k_vis, max_pairs=frame_pairs,
+                        w_full=w_full,
+                    )
+                    pair_total = counts[2]
+                else:
+                    render, alpha, counts, pair_total = fused_prepare_render(
+                        self.gaussian.params(), tree_arrays, cam,
+                        self.num_points, self._leaf_opt_dev,
+                        float(self.tree.min_resolution_pixel),
+                        self.current_depth, bg, cam["image_height"],
+                        cam["image_width"], k_visible=k_vis,
+                        sh_degree=self.gaussian.active_sh_degree,
+                        stage_has_tree=stage_has_tree, num_levels=num_levels,
+                        backend=backend, max_pairs=frame_pairs,
+                        check_scale=int(self.check_render_scale),
+                        cut_method=(self.cut_method if stage_has_tree
+                                    else "traverse"),
+                        n_roots=self.n_roots_bucket if stage_has_tree else 0,
+                        prep_backend=backend,
+                        prep_max_pairs=pick_max_pairs(self.capacity,
+                                                      per_point=1),
+                        cap_sort=cap_sort, w_full=w_full,
+                    )
+            self._frame = {"counts": counts, "pair_total": pair_total,
+                           "k_visible": k_vis, "max_pairs": frame_pairs}
+            return {"render": render, "alpha": alpha, "counts": counts,
+                    "pair_total": pair_total}
+
+    def _update_frame_buckets(self, camera: dict):
+        """The slice, pair and block budgets of the next frame: from the
+        first frame's prepare pass, then from the last frame's counts."""
         if self._render_bucket is None:
             vf = self.prepare_from_camera(camera)
             self._render_bucket = next_capacity(
                 int(sum(vf["counts"]) * 1.2), 1 << 14
             )
-        elif self._frame is not None:
+            return
+        if self._frame is None:
+            return
+        with span("sync.render_fused_buckets"):
             c = self._frame["counts"].cpu().numpy()
-            need = next_capacity(int(c[:2].sum() * 1.2), 1 << 14)
-            b = self._render_bucket
-            if need > b or need * 2 < b:
-                self._render_bucket = need
-            # counts[2] is the last frame's unclamped pair demand where the
-            # frame reports it (1.3x headroom, shrink only below half)
-            if len(c) > 2 and c[2] > 0:
-                pneed = pick_max_pairs(int(c[2] * 1.3), per_point=1)
-                pb = self._pair_bucket
-                if pb is None or pneed > pb or pneed * 2 < pb:
-                    self._pair_bucket = pneed
-            # the block path's bucket: counts[3], last frame's eligible
-            # blocks (1.1x headroom, in steps of 16)
-            if len(c) > 3 and self._block_cache is not None:
-                B = self.capacity // self._block_cache["S"]
-                kb = self._kb_bucket or B
-                need = min(B, max(16, -(-int(c[3] * 1.1) // 16) * 16))
-                if need > kb or need * 2 < kb:
-                    self._kb_bucket = need
-        # static alive bucket: the capacity-axis passes run over [:cap_sort]
-        cap_sort = min(self.capacity,
-                       -(-self.num_points // (1 << 18)) * (1 << 18))
-        k_vis = min(self._render_bucket, self.capacity, cap_sort)
-        backend = pick_backend(self.capacity, device=self.device)
-        tree_arrays, num_levels = self._tree_args(stage_has_tree)
-        max_pairs = pick_max_pairs(k_vis, per_point=6)
-        frame_pairs = min(max_pairs, self._pair_bucket or max_pairs)
-        bg = torch.as_tensor(np.asarray(background, np.float32),
-                             device=self.device)
-        flat_slice = stage_has_tree and self.cut_method == "flat_slice"
-        # the block-pruned frame needs the optimized layout, SH degree 0
-        # and a capacity past 2^16; otherwise the fused flat_slice frame
-        use_blocks = (self._layout_optimized and self._block_cache is not None
-                      and flat_slice and self.gaussian.active_sh_degree == 0
-                      and backend == "tiled" and self.capacity >= 1 << 16)
-        w_full = None
-        if flat_slice:
-            # cull first, as the reference orders it: the capacity-axis
-            # mask is refreshed every check_render_every frames (every
-            # frame by default), at full capacity for the block path
-            cull_bucket = 0 if use_blocks else cap_sort
-            if (self._cull_mask_dev is None
-                    or self._cull_bucket != cull_bucket
-                    or self._cull_frame_i % self.check_render_every == 0):
-                self._cull_mask_dev = fused_root_cull(
-                    self.gaussian.params(), tree_arrays, cam,
-                    self.num_points, cam["image_height"], cam["image_width"],
-                    prep_backend=backend,
-                    prep_max_pairs=pick_max_pairs(self.capacity, per_point=1),
-                    check_scale=int(self.check_render_scale),
-                    n_roots=self.n_roots_bucket, cap_sort=cull_bucket,
-                )
-                self._cull_bucket = cull_bucket
-            self._cull_frame_i += 1
-            w_full = self._cull_mask_dev
-        if use_blocks:
+        need = next_capacity(int(c[:2].sum() * 1.2), 1 << 14)
+        b = self._render_bucket
+        if need > b or need * 2 < b:
+            self._render_bucket = need
+        # counts[2] is the last frame's unclamped pair demand where the
+        # frame reports it (1.3x headroom, shrink only below half)
+        if len(c) > 2 and c[2] > 0:
+            pneed = pick_max_pairs(int(c[2] * 1.3), per_point=1)
+            pb = self._pair_bucket
+            if pb is None or pneed > pb or pneed * 2 < pb:
+                self._pair_bucket = pneed
+        # the block path's bucket: counts[3], last frame's eligible
+        # blocks (1.1x headroom, in steps of 16)
+        if len(c) > 3 and self._block_cache is not None:
             B = self.capacity // self._block_cache["S"]
-            render, alpha, counts = render_blocks(
-                self._block_cache["cols"], self._block_cache["meta"], cam,
-                float(self.tree.min_resolution_pixel), self.current_depth, bg,
-                cam["image_height"], cam["image_width"],
-                k_blocks=self._kb_bucket or B, k_visible=k_vis,
-                max_pairs=frame_pairs, w_full=w_full,
-            )
-            pair_total = counts[2]
-        else:
-            render, alpha, counts, pair_total = fused_prepare_render(
-                self.gaussian.params(), tree_arrays, cam, self.num_points,
-                self._leaf_opt_dev, float(self.tree.min_resolution_pixel),
-                self.current_depth, bg, cam["image_height"],
-                cam["image_width"], k_visible=k_vis,
-                sh_degree=self.gaussian.active_sh_degree,
-                stage_has_tree=stage_has_tree, num_levels=num_levels,
-                backend=backend, max_pairs=frame_pairs,
-                check_scale=int(self.check_render_scale),
-                cut_method=self.cut_method if stage_has_tree else "traverse",
-                n_roots=self.n_roots_bucket if stage_has_tree else 0,
-                prep_backend=backend,
-                prep_max_pairs=pick_max_pairs(self.capacity, per_point=1),
-                cap_sort=cap_sort, w_full=w_full,
-            )
-        self._frame = {"counts": counts, "pair_total": pair_total,
-                       "k_visible": k_vis, "max_pairs": frame_pairs}
-        return {"render": render, "alpha": alpha, "counts": counts,
-                "pair_total": pair_total}
+            kb = self._kb_bucket or B
+            need = min(B, max(16, -(-int(c[3] * 1.1) // 16) * 16))
+            if need > kb or need * 2 < kb:
+                self._kb_bucket = need
 
     def frame_stats(self) -> dict:
         """Telemetry of the last render_fused frame (host values): the
@@ -670,10 +703,12 @@ class LoG:
         the unclamped pair demand and, from the block-pruned frame, the
         eligible blocks (None otherwise)."""
         f = self._frame
-        c = f["counts"].cpu().tolist()
+        with span("sync.frame_stats"):
+            c = f["counts"].cpu().tolist()
+        with span("sync.frame_stats"):
+            pair_total = int(f["pair_total"])
         return {"cut": c[0] + c[1], "k_visible": f["k_visible"],
-                "max_pairs": f["max_pairs"],
-                "pair_total": int(f["pair_total"]),
+                "max_pairs": f["max_pairs"], "pair_total": pair_total,
                 "eligible_blocks": c[3] if len(c) > 3 else None}
 
     # ---------------------------------------------------------- init pass

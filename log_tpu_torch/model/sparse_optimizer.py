@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..utils.jax_random import np_exp
+from ..utils.profiler import span
 from .gaussian import pad_rows
 
 _F32 = torch.float32
@@ -65,7 +66,8 @@ def adam_slice_update(param, grad, exp_avg, exp_avg_sq, global_step, lr,
     Returns (param, exp_avg, exp_avg_sq, max_exp_avg_sq)."""
     exp_avg = beta1 * exp_avg + (1 - beta1) * grad
     exp_avg_sq = beta2 * exp_avg_sq + (1 - beta2) * grad * grad
-    step = torch.as_tensor(global_step, dtype=_F32, device=param.device)
+    with span("sync.adam_step"):
+        step = torch.as_tensor(global_step, dtype=_F32, device=param.device)
     bias_c1 = 1 - beta1 ** step
     bias_c2 = 1 - beta2 ** step
     step_size = lr / bias_c1
@@ -79,7 +81,8 @@ def adam_slice_update(param, grad, exp_avg, exp_avg_sq, global_step, lr,
 
 
 def _lr(lrs: dict, key: str, device):
-    return torch.as_tensor(lrs[key], dtype=_F32, device=device)
+    with span("sync.adam_lr"):
+        return torch.as_tensor(lrs[key], dtype=_F32, device=device)
 
 
 def dense_adam_step(params: dict, moments: dict, grads: dict, update_mask,

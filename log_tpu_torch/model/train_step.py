@@ -29,7 +29,6 @@ import os
 from dataclasses import dataclass, field
 
 import torch
-from torch.profiler import record_function
 
 from ..ops import compact
 from ..ops import gaussian_math as gm
@@ -40,6 +39,7 @@ from ..ops.rasterize_tiled import rasterize_tiled
 from ..ops.sh import eval_sh, sh_to_rgb
 from ..ops.ssim import ssim_loss, ssim_map
 from ..render.loss import depth_patch_loss
+from ..utils.profiler import span
 from .counter import update_counter
 from .sparse_optimizer import dense_adam_step, sparse_adam_step
 from .tensor_tree import flat_cut, flat_cut_pre, traverse_cut
@@ -69,8 +69,9 @@ def _compact_slices_gather(params: dict, keep, k: int):
         block = v[order]
         mask = lane_valid.reshape((k,) + (1,) * (block.dim() - 1))
         if name == "rotation":
-            fill = torch.tensor(UNIT_QUAT, dtype=block.dtype,
-                                device=block.device)
+            with span("sync.compact_fill"):
+                fill = torch.tensor(UNIT_QUAT, dtype=block.dtype,
+                                    device=block.device)
             block = torch.where(mask, block, fill)
         else:
             block = torch.where(mask, block, torch.zeros((), dtype=block.dtype,
@@ -256,11 +257,16 @@ def _render_tiled_cols(splat_cols, colors_cols, background, image_height: int,
     return color[:, :H, :W], 1.0 - tfinal[:H, :W], pairs["total"]
 
 
-def run_stages(stages, state=None) -> dict:
-    """Run named stages [(name, fn(state))] in order on one state dict."""
+def run_stages(stages, state=None, prefix: str | None = None) -> dict:
+    """Run named stages [(name, fn(state))] in order on one state dict,
+    each in a span `<prefix>.<name>` where a prefix is given."""
     state = {} if state is None else state
-    for _, fn in stages:
-        fn(state)
+    for name, fn in stages:
+        if prefix is None:
+            fn(state)
+        else:
+            with span(f"{prefix}.{name}"):
+                fn(state)
     return state
 
 
@@ -487,7 +493,7 @@ def _flat_slice_frame(params: dict, tree_arrays: dict, cam: dict, n_alive,
             min_resolution_pixel, current_depth, background, image_height,
             image_width, k_visible, sh_degree, mode, max_pairs, check_scale,
             n_roots, prep_backend, prep_max_pairs, use_filter,
-            per_frame_cull, w_full))
+            per_frame_cull, w_full), prefix="frame")
         return "frame", (s["render"], s["alpha"], s["counts"],
                          s["pair_total"])
 
@@ -695,7 +701,7 @@ def fused_root_cull(params: dict, tree_arrays: dict, cam: dict, n_alive,
     return run_stages(root_cull_stages(
         params, tree_arrays, cam, n_alive, image_height, image_width, mode,
         prep_backend, prep_max_pairs, check_scale, n_roots,
-        cap_sort))["w_full"]
+        cap_sort), prefix="cull")["w_full"]
 
 
 def expand_weight_full(weight_ok, tree_arrays: dict, cap: int, R: int):
@@ -871,8 +877,11 @@ def _correction_step(corr_state: dict, view_index: int, g_corr):
     vsteps[view_index] += 1
     st = vsteps[view_index].to(f32)
     t = torch.clamp(st / 100.0, 0.0, 1.0)
-    lr = torch.exp(torch.log(torch.tensor(0.1, dtype=f32, device=dev)) * (1 - t)
-                   + torch.log(torch.tensor(0.001, dtype=f32, device=dev)) * t)
+    with span("sync.correction_lr"):
+        lr_start = torch.tensor(0.1, dtype=f32, device=dev)
+    with span("sync.correction_lr"):
+        lr_end = torch.tensor(0.001, dtype=f32, device=dev)
+    lr = torch.exp(torch.log(lr_start) * (1 - t) + torch.log(lr_end) * t)
     m1 = 0.9 * corr_state["m1"][view_index] + 0.1 * g_corr
     m2 = 0.999 * corr_state["m2"][view_index] + 0.001 * g_corr * g_corr
     vmax = torch.maximum(corr_state["vmax"][view_index], m2)
@@ -961,9 +970,8 @@ def train_step_stages(params: dict, moments: dict, counter: dict, keep_leaf,
                      and not cfg.spilled and cfg.identity_ok)
 
     def compact_stage(s):
-        with record_function("train_step.compact"):
-            s["slices"], s["index"], s["lane_valid"] = _step_slices(
-                opt_params, keep_leaf, keep_node, cfg, identity_fast)
+        s["slices"], s["index"], s["lane_valid"] = _step_slices(
+            opt_params, keep_leaf, keep_node, cfg, identity_fast)
 
     def forward_stage(s):
         K = s["index"].shape[0]
@@ -974,7 +982,7 @@ def train_step_stages(params: dict, moments: dict, counter: dict, keep_leaf,
         correction = (corr_state["values"][view_index] if cfg.use_correction
                       else torch.ones(3, dtype=torch.float32, device=dev))
         s["correction"] = correction.detach().requires_grad_(True)
-        with torch.enable_grad(), record_function("train_step.render"):
+        with torch.enable_grad():
             s["out"] = _activate_and_rasterize(s["leaves"], s["offset"], cam,
                                                background, s["lane_valid"],
                                                cfg)
@@ -982,13 +990,12 @@ def train_step_stages(params: dict, moments: dict, counter: dict, keep_leaf,
     def loss_stage(s):
         out = s["out"]
         with torch.enable_grad():
-            with record_function("train_step.loss"):
-                loss, s["l1"], s["ssim"] = _loss(
-                    out, gt, background, s["correction"], mask_ignore,
-                    fg_mask, bbox, cfg)
+            loss, s["l1"], s["ssim"] = _loss(
+                out, gt, background, s["correction"], mask_ignore, fg_mask,
+                bbox, cfg)
             s["d_loss"] = None
             if cfg.render_depth:
-                with record_function("train_step.depth"):
+                with span("train_step.depth"):
                     ones = torch.ones_like(out["depth_cam"])
                     depth_cols = torch.stack(
                         [out["depth_cam"], s["leaves"]["xyz"][:, 2], ones],
@@ -1005,8 +1012,8 @@ def train_step_stages(params: dict, moments: dict, counter: dict, keep_leaf,
     def backward_stage(s):
         wrt = [*s["leaves"].values(), s["offset"], s["correction"]]
         # the backward's kernels run on autograd's device thread, outside
-        # this range; a trace attributes them by name
-        with torch.enable_grad(), record_function("train_step.backward"):
+        # the stage's span; a trace attributes them by name
+        with torch.enable_grad():
             grads = torch.autograd.grad(s["loss"], wrt, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(wrt, grads)]
@@ -1028,7 +1035,7 @@ def train_step_stages(params: dict, moments: dict, counter: dict, keep_leaf,
         # the oracle's stats come out of differentiable ops: the counters
         # keep values, not the render's graph
         radii = out["radii"].detach()
-        with record_function("train_step.counter"):
+        with span("train_step.counter"):
             new_counter = update_counter(counter, index, radii,
                                          out["point_weight"].detach(),
                                          out["point_id_pixel"], g_offset,
@@ -1038,7 +1045,7 @@ def train_step_stages(params: dict, moments: dict, counter: dict, keep_leaf,
                        & (torch.arange(K, device=dev) < cfg.k_leaf)
                        & s["loss_ok"])
         out_slices = None
-        with record_function("train_step.adam"):
+        with span("train_step.adam"):
             if cfg.spilled:
                 # the host-gathered rows go up only now, after the
                 # backward, so they are not resident at its peak (pinned:
@@ -1057,7 +1064,7 @@ def train_step_stages(params: dict, moments: dict, counter: dict, keep_leaf,
                     params, moments, g_slices, index, update_mask,
                     global_step, lrs)
         new_corr = corr_state
-        with record_function("train_step.clamp_correction"):
+        with span("train_step.clamp_correction"):
             new_params = dict(new_params)
             new_params["scaling"] = _clamp_scaling(
                 new_params["scaling"], new_counter, index, update_mask,
@@ -1104,10 +1111,11 @@ def _train_step_core(params: dict, moments: dict, counter: dict, keep_leaf,
         raise ValueError("render_depth needs gt_depth and depth_patches")
     if cfg.spilled and m_slices is None:
         raise ValueError(f"spilled moments {cfg.spilled} need m_slices")
-    return run_stages(train_step_stages(
+    stages = train_step_stages(
         params, moments, counter, keep_leaf, keep_node, cam, gt, background,
         lrs, global_step, corr_state, view_index, mask_ignore, gt_depth, cfg,
-        fg_mask, bbox, depth_patches, m_slices))["result"]
+        fg_mask, bbox, depth_patches, m_slices)
+    return run_stages(stages, prefix="train_step")["result"]
 
 
 def fused_train_step(params, moments, counter, keep_leaf, keep_node, cam, gt,
@@ -1139,7 +1147,7 @@ def fused_prepare_train_step(params, moments, counter, tree_arrays, n_alive,
     caller can grow the bucket for the next step. A transient overflow
     truncates the cut for one step.
     """
-    with record_function("train_step.visibility"):
+    with span("train_step.visibility"):
         keep_leaf, keep_node, counts = prepare_visibility(
             params, tree_arrays, cam, n_alive, is_leaf_opt,
             min_resolution_pixel, current_depth, cfg.image_height,

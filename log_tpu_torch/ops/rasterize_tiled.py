@@ -41,6 +41,7 @@ import math
 
 import torch
 
+from ..utils.profiler import span
 from . import expand as _expand
 from . import kernels
 from .expand import PACKED_SPARE, ROW_NEXT, ROW_OFFS, ExpandWithKeys
@@ -996,16 +997,19 @@ def rasterize_tiled(
         use_filter=use_filter, means2d_offset=means2d_offset,
         active_mask=active_mask, tight_radius=tight_radius,
     )
-    pairs = build_pairs(
-        splats, colors, image_height, image_width, max_pairs,
-        runs_tail_only=runs_tail_only,
-        active_prefix=prefix_mask if prefix_mask is not None else active_mask,
-        gid_ids=gid_ids,
-    )
-    color, tfinal, pid_pair, pwp, pair_w, _cend = RasterCore.apply(
-        pairs["pair_data"], pairs["tile_start"], pairs["tile_count"],
-        background, pairs["tiles_x"], pairs["tiles_y"], with_stats,
-    )
+    with span("raster.bin"):
+        pairs = build_pairs(
+            splats, colors, image_height, image_width, max_pairs,
+            runs_tail_only=runs_tail_only,
+            active_prefix=(prefix_mask if prefix_mask is not None
+                           else active_mask),
+            gid_ids=gid_ids,
+        )
+    with span("raster.composite"):
+        color, tfinal, pid_pair, pwp, pair_w, _cend = RasterCore.apply(
+            pairs["pair_data"], pairs["tile_start"], pairs["tile_count"],
+            background, pairs["tiles_x"], pairs["tiles_y"], with_stats,
+        )
     H, W = image_height, image_width
     A = pairs["pair_gid"].shape[0]
     P = xyz.shape[0]

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..utils import image_io
+from ..utils.profiler import span
 
 # matplotlib's "Spectral" colormap (ColorBrewer's 11 classes) as 8-bit
 # anchors; matplotlib spaces them evenly over [0, 1] and interpolates a
@@ -93,7 +94,8 @@ def camera_device(camera: dict, device="cuda") -> dict:
     tan_fovy = math.tan(float(camera["FoVy"]) * 0.5)
 
     def dev(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+        with span("sync.camera_device"):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
     return {
         "world_view": dev(camera["world_view_transform"]),
@@ -281,32 +283,49 @@ class NaiveRendererAndLoss(BaseRender):
         render_depth the float maps 'depth' (composited camera depth),
         'height' (world z) and 'accmap' (accumulated opacity), (B, H, W),
         rendered over a zero background."""
-        preds = defaultdict(list)
-        B = np.asarray(batch["camera"]["camera_center"]).shape[0]
-        fused = (not (getattr(model, "training", False) or self.render_depth)
-                 and hasattr(model, "render_fused"))
-        for bn in range(B):
-            camera, bg = self.prepare_camera(batch, bn, background)
-            if fused:
-                out = model.render_fused(camera, bg)
-            else:
-                model.prepare_from_camera(camera)
-                out = self.render_one(model, camera, bg)
-            ren8 = (torch.clamp(out["render"], 0, 1) * 255).to(torch.uint8)
-            alp8 = (torch.clamp(out["alpha"], 0, 1) * 255).to(torch.uint8)
-            preds["render"].append(ren8.cpu().numpy().astype(np.float32) / 255.0)
-            alpha = alp8.cpu().numpy().astype(np.float32) / 255.0
-            preds["alpha"].append(alpha)
-            preds["mask"].append(alpha)
-            if self.render_depth:
-                xyz = model.gaussian.params()["xyz"]
-                cols = torch.stack([out["depth_cam"], xyz[:, 2],
-                                    torch.ones_like(xyz[:, 2])], dim=-1)
-                aux = self.render_one(model, camera, np.zeros(3, np.float32),
-                                      extra_colors=cols)["render"].cpu()
-                for c, key in enumerate(("depth", "height", "accmap")):
-                    preds[key].append(aux[c].numpy())
-        return {key: np.stack(val) for key, val in preds.items()}
+        with span("vis"):
+            preds = defaultdict(list)
+            B = np.asarray(batch["camera"]["camera_center"]).shape[0]
+            fused = (not (getattr(model, "training", False)
+                          or self.render_depth)
+                     and hasattr(model, "render_fused"))
+            for bn in range(B):
+                with span("vis.camera"):
+                    camera, bg = self.prepare_camera(batch, bn, background)
+                if fused:
+                    out = model.render_fused(camera, bg)
+                else:
+                    model.prepare_from_camera(camera)
+                    out = self.render_one(model, camera, bg)
+                with span("vis.quantize"):
+                    ren8 = (torch.clamp(out["render"], 0, 1) * 255).to(
+                        torch.uint8)
+                    alp8 = (torch.clamp(out["alpha"], 0, 1) * 255).to(
+                        torch.uint8)
+                with span("sync.vis_copy"):
+                    ren8 = ren8.cpu()
+                with span("vis.to_numpy"):
+                    preds["render"].append(
+                        ren8.numpy().astype(np.float32) / 255.0)
+                with span("sync.vis_copy"):
+                    alp8 = alp8.cpu()
+                with span("vis.to_numpy"):
+                    alpha = alp8.numpy().astype(np.float32) / 255.0
+                    preds["alpha"].append(alpha)
+                    preds["mask"].append(alpha)
+                if self.render_depth:
+                    xyz = model.gaussian.params()["xyz"]
+                    cols = torch.stack([out["depth_cam"], xyz[:, 2],
+                                        torch.ones_like(xyz[:, 2])], dim=-1)
+                    aux = self.render_one(model, camera,
+                                          np.zeros(3, np.float32),
+                                          extra_colors=cols)["render"]
+                    with span("sync.vis_depth_copy"):
+                        aux = aux.cpu()
+                    for c, key in enumerate(("depth", "height", "accmap")):
+                        preds[key].append(aux[c].numpy())
+            with span("vis.to_numpy"):
+                return {key: np.stack(val) for key, val in preds.items()}
 
     def process_gt(self, batch):
         img = np.asarray(batch["image"])

@@ -28,6 +28,7 @@ from ..dataset.base import prepare_camera
 from ..model.gaussian import next_capacity
 from ..ops import budget_for_demand, kernels
 from ..render.renderer import camera_device
+from ..utils.profiler import is_span
 
 SEED = 0
 # model.args of config/synthetic/level_of_gaussian.yml without init_ply
@@ -358,14 +359,14 @@ def block_cell(tree: PaddedTree, cams, min_res: float, frames: int,
 
 
 def _device_events(prof):
-    """The profiler's device-side kernel records (not the ranges that
-    record_function also draws on the device timeline)."""
+    """The profiler's device-side kernel records (not the copies that the
+    port's spans also draw on the device timeline)."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.events()
             if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith("train_step.")]
+            and not is_span(e.name)]
 
 
 PROFILE_PAD_S = 0.05  # idle host time at each end of a profiled window

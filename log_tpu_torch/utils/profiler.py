@@ -1,11 +1,21 @@
 """Profiling hooks; counterpart of log_tpu/utils/profiler.py.
 
-`profile_if(enabled, logdir)` wraps a block in torch.profiler (CPU and, on a
-CUDA machine, CUDA activities) and writes a Chrome trace and a table of
-device time by kernel into logdir. `Timer` accumulates the time of a block
-and prints the demo and val loops' "Average time: ... ms, fps: ..." line:
-on a CUDA device between two
-CUDA events (the stream's time from the block's first launch to its last,
+`span(name)` is how the port marks a stretch of its host work: while
+torch.profiler records, a `record_function` range, which lands in the
+profiler's trace on the clock of the device's kernels, copies and fills,
+so that each idle gap of the device can be put down to the host work
+behind it; otherwise one shared null context. A span's name is its root
+(SPAN_ROOTS) or `<root>.<part>`; the spans of a frame or a step nest in
+its top-level span (`vis`, `trainer.training_step`), and a statement that
+blocks the host until the device catches up sits alone in a
+`sync.<site>` span, whose duration is the host's wait.
+
+`profile_if(enabled, logdir)` wraps a block in torch.profiler (CPU and, on
+a CUDA machine, CUDA activities) and writes a Chrome trace, spans
+included, and a table of device time by kernel into logdir. `Timer`
+accumulates the time of a block and prints the demo and val loops'
+"Average time: ... ms, fps: ..." line: on a CUDA device between two CUDA
+events (the stream's time from the block's first launch to its last,
 host gaps included), else on the host clock.
 """
 from __future__ import annotations
@@ -15,6 +25,26 @@ import os
 import time
 
 import torch
+from torch.profiler import record_function
+
+# the first word of every span name the port opens
+SPAN_ROOTS = ("vis", "trainer", "render_fused", "training_iteration", "cull",
+              "frame", "block", "raster", "train_step", "sync")
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A `record_function(name)` range while torch.profiler records, else
+    the shared null context: with no profiler, one check and nothing
+    allocated."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _OFF
+
+
+def is_span(name: str) -> bool:
+    """Whether a trace record's name is one of the port's spans."""
+    return name.split(".", 1)[0] in SPAN_ROOTS
 
 
 @contextlib.contextmanager

@@ -41,6 +41,7 @@ from . import image_io
 from ..parallel.comm import Comm
 from .config import load_object
 from .hbm import hbm_usage
+from .profiler import span
 from .recorder import Recorder
 from .sampler import DataLoader, IndexSampler, IterationBasedSampler
 
@@ -234,7 +235,8 @@ class Trainer:
         budget the cache is dropped and every step uploads."""
         device = self.model.device
         if not self._gt_cache_ok:
-            return torch.from_numpy(gt).to(device)
+            with span("sync.gt_upload"):
+                return torch.from_numpy(gt).to(device)
         key = (int(view_index), gt.shape)
         hit = self._gt_dev_cache.get(key)
         if hit is not None:
@@ -242,8 +244,10 @@ class Trainer:
         if self._gt_cache_bytes + gt.nbytes > self.gt_cache_limit_bytes:
             self._gt_cache_ok = False
             self._gt_dev_cache.clear()
-            return torch.from_numpy(gt).to(device)
-        dev = torch.from_numpy(gt).to(device)
+            with span("sync.gt_upload"):
+                return torch.from_numpy(gt).to(device)
+        with span("sync.gt_upload"):
+            dev = torch.from_numpy(gt).to(device)
         self._gt_cache_bytes += gt.nbytes
         self._gt_dev_cache[key] = dev
         return dev
@@ -292,33 +296,43 @@ class Trainer:
         cadence, which also records the losses) and the device scalar
         otherwise. Under cfg.train.parallel the batch is one sharded
         step."""
-        if self.executor is not None:
-            return self._training_step_parallel(model, data)
+        with span("trainer.training_step"):
+            if self.executor is not None:
+                return self._training_step_parallel(model, data)
+            return self._training_step(model, data)
+
+    def _training_step(self, model, data):
         B = np.asarray(data["camera"]["camera_center"]).shape[0]
         output = {}
         for bn in range(B):
-            camera, background = self.render.prepare_camera(
-                data, bn, None, is_train=True, rng=self.rng)
-            origin_radius = model.tree.min_resolution_pixel
-            if getattr(self.render, "use_rand_radius", False):
-                model.tree.min_resolution_pixel = self._rand_radius_jitter()
-            gt = np.asarray(data["image"][bn]).transpose(2, 0, 1)
-            if gt.dtype != np.uint8:
-                # 8-bit sources: uint8 is exact and a quarter of the bytes;
-                # the step normalizes on the device
-                gt = (np.clip(gt, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-            gt = np.ascontiguousarray(gt)
-            mask = None
-            if "mask_ignore" in data:
-                mask = np.asarray(data["mask_ignore"][bn])
-            view_index = int(np.asarray(data["index"])[bn])
-            gt_step = self._gt_to_device(view_index, gt)
-            gt_depth = None
-            if "depth" in data and isinstance(data["depth"][bn], np.ndarray):
-                gt_depth = np.asarray(data["depth"][bn])
-            fg_mask = None
-            if getattr(self.render, "foreground_crop", False) and "mask" in data:
-                fg_mask = np.asarray(data["mask"][bn])
+            with span("trainer.camera"):
+                camera, background = self.render.prepare_camera(
+                    data, bn, None, is_train=True, rng=self.rng)
+                origin_radius = model.tree.min_resolution_pixel
+                if getattr(self.render, "use_rand_radius", False):
+                    model.tree.min_resolution_pixel = \
+                        self._rand_radius_jitter()
+            with span("trainer.gt"):
+                gt = np.asarray(data["image"][bn]).transpose(2, 0, 1)
+                if gt.dtype != np.uint8:
+                    # 8-bit sources: uint8 is exact and a quarter of the
+                    # bytes; the step normalizes on the device
+                    gt = (np.clip(gt, 0.0, 1.0) * 255.0 + 0.5).astype(
+                        np.uint8)
+                gt = np.ascontiguousarray(gt)
+                mask = None
+                if "mask_ignore" in data:
+                    mask = np.asarray(data["mask_ignore"][bn])
+                view_index = int(np.asarray(data["index"])[bn])
+                gt_step = self._gt_to_device(view_index, gt)
+                gt_depth = None
+                if ("depth" in data
+                        and isinstance(data["depth"][bn], np.ndarray)):
+                    gt_depth = np.asarray(data["depth"][bn])
+                fg_mask = None
+                if (getattr(self.render, "foreground_crop", False)
+                        and "mask" in data):
+                    fg_mask = np.asarray(data["mask"][bn])
             metrics, aux = model.training_iteration(
                 camera, gt_step, background, mask_ignore=mask,
                 view_index=view_index, gt_depth=gt_depth,
@@ -326,20 +340,24 @@ class Trainer:
                 fg_mask=fg_mask,
             )
             model.tree.min_resolution_pixel = origin_radius
-            output = {
-                "metrics": metrics,
-                "render": aux["render"],
-                "loss_dev": metrics["loss"],
-                "gt": gt.astype(np.float32) / 255.0,
-            }
+            with span("trainer.output"):
+                output = {
+                    "metrics": metrics,
+                    "render": aux["render"],
+                    "loss_dev": metrics["loss"],
+                    "gt": gt.astype(np.float32) / 255.0,
+                }
         if not output:
             return False, {}, 0.0
         if self.global_iterations % 10 == 0:
-            loss = float(output["loss_dev"])
+            with span("sync.training_step_loss"):
+                loss = float(output["loss_dev"])
             self.recorder.log(self.global_iterations, "train/loss", loss)
             for key in ("l1", "ssim"):
-                self.recorder.log(self.global_iterations, f"train/loss_{key}",
-                                  float(output["metrics"][key]))
+                with span("sync.training_step_loss"):
+                    value = float(output["metrics"][key])
+                self.recorder.log(self.global_iterations,
+                                  f"train/loss_{key}", value)
             return True, output, loss
         return True, output, output["loss_dev"]
 
