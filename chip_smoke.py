@@ -22,10 +22,17 @@ than two cards. Phases:
    bound: bytes over the memory rate or FP32 operations over the peak,
    from this run's inputs (for K1, K2 and K5 the pairs of the composited
    chunks and the (pair, pixel) combinations whose alpha gate passes,
-   counted on the card in plain torch);
+   counted on the card in plain torch); to_host (the 8-bit handoff, the
+   port's own kernel) on a served frame's render (a strided view) and
+   alpha, and later on the training step's cached uint8 GT, bit-exact
+   against its plain version, timed beside a pinned copy_ of the same
+   bytes, its bound those bytes over the host link's rate (a pinned copy_
+   of 256 MiB); and the host ms of a pinned render block when the caller
+   keeps its frames;
 4. serving slice: launch counters reset, 12 orbit frames through
    NaiveRendererAndLoss.vis -> LoG.render_fused (2 warm-up), timed with
-   torch.cuda.synchronize(); every kernel of the path must have launched;
+   torch.cuda.synchronize(); every kernel of the path must have launched,
+   to_host once a frame;
 5. serving checks: the frames are finite, of the expected shape and not
    blank; frame 0 rendered again with the plain versions agrees with the
    kernels;
@@ -55,7 +62,8 @@ than two cards. Phases:
 7. training slice: launch counters reset, 24 steps of
    Trainer.training_step -> LoG.training_iteration cycling the 4 views with
    a random background (steps 21-24 run the per-view gain), each timed with
-   torch.cuda.synchronize(); K2 must launch once per step, K1 at least twice;
+   torch.cuda.synchronize(); K2 and to_host must launch once per step, K1
+   at least twice;
 8. training checks: K2 against its plain version on step 0's own inputs
    (and two launches bit-identical), K1 on step 0's "weights" and True
    calls;
@@ -375,6 +383,8 @@ KERNEL_SOURCES = {
                              "log_tpu/ops/rasterize_tiled.py:1094"),
     "stream_compact": ("log_tpu_torch/csrc/compact.cu",
                        "log_tpu/ops/compact_pallas.py:48"),
+    # the port's own: the JAX package hands the same arrays over in numpy
+    "to_host": ("log_tpu_torch/csrc/to_host.cu", None),
 }
 # the bound of a kernel (bound_ms): the larger of its bytes (each input
 # read once, each output written once) over the memory rate and its
@@ -398,7 +408,17 @@ NO_LIBRARY_CALL = {
     "rasterize_bwd": "none: the compositing recurrence run back to front",
     "rasterize_fwd_packed": "none: sequential compositing of bf16 records",
     "stream_compact": "none: its output is zero-filled to k",
+    "to_host": "a pinned copy_ of the float32 bytes it writes moves them "
+               "without the quantize (library_ms where the row measures "
+               "it)",
 }
+# to_host's bound: the bytes it writes into pinned host memory over the
+# host link's rate, which a plain copy_ of LINK_PROBE_BYTES from the device
+# into pinned memory measures
+LINK_PROBE_BYTES = 256 << 20
+# frames a caller keeps, each holding its pinned render block: allocations
+# first held untimed (to use up the cache's free blocks), then timed
+KEPT_DRAIN, KEPT_TIMED = 8, 3
 SERVING_KERNELS = ("pack_rows", "expand_with_keys", "rasterize_fwd")
 # the flat_slice frame: the root cull render (K3, K4, K1) and the packed
 # column render (K4, K3p, K5)
@@ -647,6 +667,7 @@ def plain_versions():
     from log_tpu_torch.ops import rasterize_tiled as rt
 
     from log_tpu_torch.ops import compact
+    from log_tpu_torch.ops import to_host as th
 
     with patched(ex, {"expand_with_keys": ex.expand_with_keys_plain,
                       "expand_packed_with_keys":
@@ -657,7 +678,8 @@ def plain_versions():
                          "rasterize_forward_packed":
                              rt.rasterize_forward_packed_plain}), \
             patched(compact, {"stream_compact_cols":
-                              compact.stream_compact_cols_plain}):
+                              compact.stream_compact_cols_plain}), \
+            patched(th, {"to_host": th.to_host_plain}):
         yield
 
 
@@ -1031,6 +1053,127 @@ def compare_kernels(calls, log):
                                        "bound_by")},
         "modes": modes}
     return rows, failures
+
+
+def link_rate(log):
+    """Bytes a second of a plain copy_ of LINK_PROBE_BYTES from the device
+    into pinned host memory: the host link's rate as PyTorch reaches it."""
+    import torch
+
+    src = torch.rand(LINK_PROBE_BYTES // 4, device="cuda")
+    dst = torch.empty(LINK_PROBE_BYTES // 4, pin_memory=True)
+    ms = device_ms(lambda: dst.copy_(src, non_blocking=True), 10)
+    rate = LINK_PROBE_BYTES / ms * 1e3
+    log(f"host link: a pinned copy_ of {LINK_PROBE_BYTES} bytes "
+        f"{ms:.4f} ms, {rate / 1e9:.2f} GB/s")
+    return rate
+
+
+def frame_planes(model, renderer, batch):
+    """The planes vis hands to_host on the main path, from one served
+    frame: its render (a strided view of the padded frame buffer) and its
+    alpha, as render_fused returned them."""
+    seen, inner = [], model.render_fused
+
+    def render_fused(*a, **kw):
+        seen.append(inner(*a, **kw))
+        return seen[-1]
+
+    with patched(model, {"render_fused": render_fused}):
+        renderer.vis(batch, model)
+    return seen[0]["render"], seen[0]["alpha"]
+
+
+def check_to_host(call, planes, rate, log, failures):
+    """to_host on the path's own planes [(src, destinations)] against
+    to_host_plain, bit for bit; the kernel (into pinned memory), the plain
+    version and a pinned copy_ of the bytes the kernel writes timed by CUDA
+    events; the bound, those bytes over the link's rate."""
+    import torch
+
+    from log_tpu_torch.ops import to_host as th
+
+    def outs(pinned):
+        return [(src, tuple(torch.empty(src.shape, dtype=torch.float32,
+                                        pin_memory=pinned)
+                            for _ in range(n))) for src, n in planes]
+
+    kern, plain = outs(True), outs(False)
+    th.to_host(kern)
+    torch.cuda.synchronize()
+    th.to_host_plain(plain)
+    pairs = [(a, b) for (_, ka), (_, pa) in zip(kern, plain)
+             for a, b in zip(ka, pa)]
+    exact = all(torch.equal(_bits(a), _bits(b)) for a, b in pairs)
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    ms = device_ms(lambda: th.to_host(kern), 10)
+    pms = device_ms(lambda: th.to_host_plain(plain), 3)
+    nbytes = sum(4 * src.numel() * n for src, n in planes)
+    flat = torch.rand(nbytes // 4, device="cuda")
+    host = torch.empty(nbytes // 4, pin_memory=True)
+    lib_ms = device_ms(lambda: host.copy_(flat, non_blocking=True), 10)
+    b_ms = nbytes / rate * 1e3
+    shapes = [(tuple(src.shape), tuple(src.stride()), str(src.dtype), n)
+              for src, n in planes]
+    log(f"TH to_host        {call} {shapes}: exact={exact} max_abs={err:.3g} "
+        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, pinned copy_ "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({nbytes} bytes over the "
+        f"link)")
+    if not exact:
+        failures.append(f"to_host {call} is not bit-exact")
+    return {"call": call, "planes": shapes, "exact": exact,
+            "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": b_ms, "bound_by": "host link", "bytes": nbytes,
+            "library_ms": lib_ms}
+
+
+def kept_frame_cost(shape, log):
+    """Host ms of the pinned render block vis takes a camera (`shape`),
+    from PyTorch's caching host allocator: warm (a block freed just before)
+    and kept (every earlier block held, as by a caller that keeps its
+    frames: KEPT_DRAIN untimed, then KEPT_TIMED timed); with what the held
+    timed blocks moved in torch.cuda.host_memory_stats, where it has
+    any."""
+    import torch
+
+    from log_tpu_torch.ops import to_host as th
+
+    like = torch.empty(0, device="cuda")
+
+    def stats():
+        try:
+            return torch.cuda.host_memory_stats()
+        except (AttributeError, RuntimeError):
+            return {}
+
+    def alloc():
+        t0 = time.perf_counter()
+        t = th.host_empty(shape, like)
+        return t, (time.perf_counter() - t0) * 1e3
+
+    warm = []
+    for _ in range(KEPT_TIMED + 1):
+        t, ms = alloc()
+        warm.append(ms)
+        del t
+    held = [alloc()[0] for _ in range(KEPT_DRAIN)]
+    before = stats()
+    kept = []
+    for _ in range(KEPT_TIMED):
+        t, ms = alloc()
+        held.append(t)
+        kept.append(ms)
+    after = stats()
+    moved = {k: v - before.get(k, 0) for k, v in after.items()
+             if isinstance(v, (int, float)) and v != before.get(k, 0)}
+    del held
+    nbytes = 4 * math.prod(shape)
+    log(f"TH kept frame: a pinned render block of {nbytes} bytes, warm "
+        + " ".join(f"{m:.3f}" for m in warm[1:]) + " ms, kept "
+        + " ".join(f"{m:.3f}" for m in kept) + f" ms; host_memory_stats "
+        f"moved by {KEPT_TIMED} kept: {moved}")
+    return {"render_bytes": nbytes, "warm_ms": warm[1:], "kept_ms": kept,
+            "host_memory_stats_moved": moved}
 
 
 def run_slice(model, renderer, batches, log, label="slice"):
@@ -5277,6 +5420,19 @@ def main() -> int:
     rows, kfail = compare_kernels(calls, log)
     failures += kfail
     del calls
+    rate = link_rate(log)
+    ren, alp = frame_planes(model, renderer, batches[0])
+    th_frame = check_to_host("generic frame", [(ren, 1), (alp, 2)], rate,
+                             log, failures)
+    rows["to_host"] = {
+        **{key: th_frame[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")},
+        "library_note": "a pinned copy_ of the bytes the kernel writes, "
+                        "with no quantize",
+        "link_bytes_per_s": rate, "calls": [th_frame],
+        "kept_frame": kept_frame_cost((1, *ren.shape), log)}
+    del ren, alp
 
     frame_ms, renders, telemetry, launches, peak = run_slice(
         model, renderer, batches, log
@@ -5285,6 +5441,9 @@ def main() -> int:
         if launches[name] <= 0:
             failures.append(f"kernel {name} never launched on the serving "
                             f"path")
+    if launches["to_host"] != FRAMES:
+        failures.append(f"to_host launched {launches['to_host']} times in "
+                        f"{FRAMES} frames")
     failures += check_frames(renders, "slice")
     if PROFILE:
         profile_frames("generic", model, renderer, batches, frame_ms, log)
@@ -5354,6 +5513,9 @@ def main() -> int:
     if finite_fail:
         failures.append(f"non-finite parameters or moments after steps "
                         f"{finite_fail}")
+    if t_launches["to_host"] != TRAIN_STEPS:
+        failures.append(f"to_host launched {t_launches['to_host']} times in "
+                        f"{TRAIN_STEPS} steps")
     if t_launches["rasterize_bwd"] != TRAIN_STEPS:
         failures.append(f"K2 launched {t_launches['rasterize_bwd']} times in "
                         f"{TRAIN_STEPS} steps")
@@ -5387,6 +5549,12 @@ def main() -> int:
         failures.append("counters not filled on the kept rows")
     rows["rasterize_bwd"], kfail = compare_k2(step0["calls"], log)
     failures += kfail
+    th_gt = check_to_host("training step GT",
+                          [(next(iter(trainer._gt_dev_cache.values())), 1)],
+                          rate, log, failures)
+    rows["to_host"]["calls"].append(th_gt)
+    rows["to_host"]["max_abs_err"] = max(c["max_abs_err"]
+                                         for c in rows["to_host"]["calls"])
     step_modes, kfail = compare_k1_step(step0["calls"], log)
     failures += kfail
     rows["rasterize_fwd"]["modes"] += step_modes

@@ -8,8 +8,8 @@ that carries a hash of the flags and of every source and header under
 csrc/, so an edited file rebuilds. Nothing here runs at import time:
 importing needs neither nvcc nor a GPU.
 
-Every kernel wrapper (ops/expand.py, ops/rasterize_tiled.py, ops/compact.py)
-adds one to its entry of `LAUNCHES` where it launches its kernel, and
+Every kernel wrapper (ops/expand.py, ops/rasterize_tiled.py, ops/compact.py,
+ops/to_host.py) adds one to its entry of `LAUNCHES` where it launches its kernel, and
 nowhere else.
 """
 from __future__ import annotations
@@ -29,7 +29,7 @@ from .. import BUILD_DIR
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("pack.cu", "expand.cu", "rasterize_fwd.cu", "rasterize_bwd.cu",
-           "compact.cu")
+           "compact.cu", "to_host.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -38,7 +38,7 @@ NVCC_FLAGS = (
 # launches per kernel wrapper since the last reset_launches()
 LAUNCHES = {"pack_rows": 0, "expand_with_keys": 0, "rasterize_fwd": 0,
             "rasterize_bwd": 0, "expand_packed": 0,
-            "rasterize_fwd_packed": 0, "stream_compact": 0}
+            "rasterize_fwd_packed": 0, "stream_compact": 0, "to_host": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +57,8 @@ _SIGNATURES = {
                                  _VP, _VP],
     "log_stream_compact": [_VP, _LL, _I, ctypes.POINTER(_VP), _I, _VP, _VP,
                            _VP, _VP, _VP],
+    "log_to_host": [_I, ctypes.POINTER(_VP), ctypes.POINTER(_I),
+                    ctypes.POINTER(_LL), ctypes.POINTER(_VP), _VP, _VP],
 }
 
 _lock = threading.Lock()

@@ -24,6 +24,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ..ops import to_host
 from ..utils import image_io
 from ..utils.profiler import span
 
@@ -164,6 +165,15 @@ class BaseRender:
         image_io.make_video(path, fps)
 
 
+def _host_frame(B: int, H: int, W: int, like) -> dict:
+    """vis's host arrays, for `to_host` to fill: 'render' (B, 3, H, W),
+    'alpha' and 'mask' (B, H, W), pinned where `like` lies on a CUDA
+    device."""
+    return {"render": to_host.host_empty((B, 3, H, W), like),
+            "alpha": to_host.host_empty((B, H, W), like),
+            "mask": to_host.host_empty((B, H, W), like)}
+
+
 class NaiveRendererAndLoss(BaseRender):
     """Inference side of the 0.8 L1 + 0.2 SSIM training renderer."""
 
@@ -282,9 +292,12 @@ class NaiveRendererAndLoss(BaseRender):
         quantized to 8 bits on the device like the JAX package, and with
         render_depth the float maps 'depth' (composited camera depth),
         'height' (world z) and 'accmap' (accumulated opacity), (B, H, W),
-        rendered over a zero background."""
+        rendered over a zero background. One `to_host` a camera writes the
+        camera's slot of the three arrays, which on a CUDA device are views
+        of pinned host memory."""
         with span("vis"):
             preds = defaultdict(list)
+            frame = {}
             B = np.asarray(batch["camera"]["camera_center"]).shape[0]
             fused = (not (getattr(model, "training", False)
                           or self.render_depth)
@@ -298,21 +311,15 @@ class NaiveRendererAndLoss(BaseRender):
                     model.prepare_from_camera(camera)
                     out = self.render_one(model, camera, bg)
                 with span("vis.quantize"):
-                    ren8 = (torch.clamp(out["render"], 0, 1) * 255).to(
-                        torch.uint8)
-                    alp8 = (torch.clamp(out["alpha"], 0, 1) * 255).to(
-                        torch.uint8)
+                    if not frame:
+                        frame = _host_frame(B, *out["render"].shape[-2:],
+                                            out["render"])
+                    to_host.to_host([
+                        (out["render"], (frame["render"][bn],)),
+                        (out["alpha"], (frame["alpha"][bn],
+                                        frame["mask"][bn]))])
                 with span("sync.vis_copy"):
-                    ren8 = ren8.cpu()
-                with span("vis.to_numpy"):
-                    preds["render"].append(
-                        ren8.numpy().astype(np.float32) / 255.0)
-                with span("sync.vis_copy"):
-                    alp8 = alp8.cpu()
-                with span("vis.to_numpy"):
-                    alpha = alp8.numpy().astype(np.float32) / 255.0
-                    preds["alpha"].append(alpha)
-                    preds["mask"].append(alpha)
+                    to_host.wait(out["render"])
                 if self.render_depth:
                     xyz = model.gaussian.params()["xyz"]
                     cols = torch.stack([out["depth_cam"], xyz[:, 2],
@@ -324,8 +331,12 @@ class NaiveRendererAndLoss(BaseRender):
                         aux = aux.cpu()
                     for c, key in enumerate(("depth", "height", "accmap")):
                         preds[key].append(aux[c].numpy())
-            with span("vis.to_numpy"):
-                return {key: np.stack(val) for key, val in preds.items()}
+            result = {key: t.numpy() for key, t in frame.items()}
+            if preds:
+                with span("vis.to_numpy"):
+                    result.update((key, np.stack(val))
+                                  for key, val in preds.items())
+            return result
 
     def process_gt(self, batch):
         img = np.asarray(batch["image"])

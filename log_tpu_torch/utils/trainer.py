@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from . import image_io
+from ..ops import to_host
 from ..parallel.comm import Comm
 from .config import load_object
 from .hbm import hbm_usage
@@ -345,7 +346,7 @@ class Trainer:
                     "metrics": metrics,
                     "render": aux["render"],
                     "loss_dev": metrics["loss"],
-                    "gt": gt.astype(np.float32) / 255.0,
+                    "gt": to_host.fetch(gt_step, "sync.step_gt"),
                 }
         if not output:
             return False, {}, 0.0

@@ -50,7 +50,8 @@ def test_package_imports_without_jax():
                  "scripts.bench_explore", "scripts.bench_sortcost",
                  "scripts.bench_gathercost", "scripts.bench_blockgather",
                  "scripts.backend_equivalence",
-                 "scripts.check_sharded_fullscale", "scripts.bench"):
+                 "scripts.check_sharded_fullscale", "scripts.bench",
+                 "ops.to_host"):
         assert f"log_tpu_torch.{name}" in names
     from log_tpu_torch.model import train_step
     from log_tpu_torch.scripts import _common, bench

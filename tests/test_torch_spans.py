@@ -29,7 +29,6 @@ NESTING = {
     "view": [
         ("vis.camera", "vis"), ("render_fused", "vis"),
         ("vis.quantize", "vis"), ("sync.vis_copy", "vis"),
-        ("vis.to_numpy", "vis"),
         ("render_fused.inputs", "render_fused"),
         ("sync.camera_device", "render_fused.inputs"),
         ("sync.render_fused_buckets", "render_fused.inputs"),
@@ -53,6 +52,7 @@ NESTING = {
         ("trainer.gt", "trainer.training_step"),
         ("training_iteration", "trainer.training_step"),
         ("trainer.output", "trainer.training_step"),
+        ("sync.step_gt", "trainer.output"),
         ("training_iteration.inputs", "training_iteration"),
         ("sync.training_iteration_buckets", "training_iteration.inputs"),
         ("sync.camera_device", "training_iteration.inputs"),
@@ -82,11 +82,12 @@ NESTING = {
 SYNCS = {
     "view": {"sync.camera_device": 3, "sync.render_fused_buckets": 1,
              "sync.render_fused_background": 1, "sync.compact_fill": 1,
-             "sync.vis_copy": 2},
+             "sync.vis_copy": 1},
     "train": {"sync.training_iteration_buckets": 1, "sync.camera_device": 3,
               "sync.step_background": 1, "sync.compact_fill": 3,
               "sync.counter_bincount": 2, "sync.adam_lr": 6,
-              "sync.adam_step": 6, "sync.correction_lr": 2},
+              "sync.adam_step": 6, "sync.correction_lr": 2,
+              "sync.step_gt": 1},
 }
 TOP = {"view": "vis", "train": "trainer.training_step"}
 
