@@ -25,9 +25,13 @@ import sys
 import time
 from pathlib import Path
 
+from . import check, train, view
+
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "benchmark"
 BANNED = ("jax", "jaxlib", "flax", "log_tpu")
+# each traffic file's `kind` and the loop that drives it
+LOOPS = {"flythrough": view.run, "train-cycle": train.run}
 
 
 def process_start() -> float:
@@ -172,12 +176,9 @@ def execute(ctx, bench: dict, wl: dict):
     the result line or None)."""
     import torch
 
-    from . import check, train, view
-
     ctx.cfg["ref"] = reference_config(ctx.cfg)
-    loops = {"flythrough": view.run, "train-cycle": train.run}
     with contextlib.redirect_stdout(sys.stderr):
-        res = loops[ctx.traffic["kind"]](ctx)
+        res = LOOPS[ctx.traffic["kind"]](ctx)
 
     cell, device = ctx.cell, ctx.device
     e2e = [m for m in bench["end_to_end"]

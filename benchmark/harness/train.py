@@ -10,7 +10,11 @@ then drives the same trainer through one step per view: the first
 `compared_steps` of them are read (each loss; after the first, the Adam
 first moments; after the last, the parameters' change) and later held
 against the reference's steps from the same checkpoint. The window then
-continues the cycle for the run's seconds.
+continues the cycle for the run's seconds. A traced window keeps the
+`metrics` that each step returns (the program's own counters: the loss,
+`num_rendered`, the binning's `pair_total`, the visibility pass's
+`counts`) and hands them to the metric files on the host, once the
+window has closed, as `step_stats`.
 """
 from __future__ import annotations
 
@@ -96,11 +100,14 @@ def run(ctx) -> dict:
     k0 = k + 1
     setup_s = ctx.since_start()
 
-    times = []
+    times, step_metrics = [], []
     if ctx.trace:
         with profiled() as prof:
             for k in range(k0, k0 + tr["trace_steps"]):
-                times.append(step(k)[1])
+                out, dt = step(k)
+                times.append(dt)
+                step_metrics.append(out["metrics"])   # device tensors
+                del out   # the step's render and GT go back before the next
         window_s = sum(times)
     else:
         t0 = time.perf_counter()
@@ -110,6 +117,7 @@ def run(ctx) -> dict:
             k += 1
         window_s = time.perf_counter() - t0
     traced = list(range(k0, k0 + len(times))) if ctx.trace else []
+    step_stats = [_host_stats(m) for m in step_metrics]
     peak = ctx.peak_bytes()
     del model, trainer, renderer
     gc.collect()
@@ -148,9 +156,20 @@ def run(ctx) -> dict:
             "attempted": len(times),
             "peak_bytes": peak, "ref_s": ref_s,
             "layer": {"kind": "train", "steps": times, "works": works,
+                      "step_stats": step_stats,
                       "sh_degree": cfg["model"]["gaussian"]["sh_degree"],
                       "trace": prof.trace if ctx.trace else None}}
 
 
 def _norms(moments: dict) -> dict:
     return {k: float(torch.linalg.vector_norm(v)) for k, v in moments.items()}
+
+
+def _host_stats(metrics: dict) -> dict:
+    """A step's metrics on the host: scalars as floats, the rest (the
+    visibility pass's counts) as lists."""
+    out = {}
+    for k, v in metrics.items():
+        v = v.detach().cpu()
+        out[k] = float(v) if v.dim() == 0 else v.tolist()
+    return out

@@ -34,6 +34,17 @@ def cell_files(cell: str):
     return wl, cfg, tr
 
 
+# BENCHMARK.json's cells, read once at collection: the tests that run a
+# cell take them from here, so a cell that joins through its files alone
+# gets its runs too
+CELLS = [w["name"] for w in bench()["workloads"]]
+# the first cell of each traffic kind, for the checks that one cell of a
+# kind stands for all
+FIRST = {}
+for _cell in CELLS:
+    FIRST.setdefault(cell_files(_cell)[2]["kind"], _cell)
+
+
 def shrink(cfg: dict, tr: dict):
     """The cell at a size a CPU test holds: 2,000 roots (10,800 points), a
     64 x 256 image at focal 300, a few frames or steps."""
@@ -54,12 +65,22 @@ def cpu_tiled(monkeypatch):
 
 
 @pytest.fixture
-def run_cell(cpu_tiled):
+def run_cell(cpu_tiled, monkeypatch):
     """run_cell(cell, trace=0, seed=SEED) -> (exit code, result line) of the
-    shrunk cell on the CPU, through runner.execute."""
+    shrunk cell on the CPU, through runner.execute; run_cell.res is what
+    the traffic loop returned to the runner (its layer among it)."""
     import torch
 
     from benchmark.harness import runner
+
+    def remembered(loop):
+        def drive(ctx):
+            run.res = loop(ctx)
+            return run.res
+        return drive
+
+    for kind, loop in list(runner.LOOPS.items()):
+        monkeypatch.setitem(runner.LOOPS, kind, remembered(loop))
 
     def run(cell: str, trace: int = 0, seed: int = SEED):
         wl, cfg, tr = cell_files(cell)

@@ -1,13 +1,15 @@
 """The comparison fails what it must: each fault a cell can have, planted
 in the port under a run on the CPU, and the control (the reference one
 precision lower in the program's place) read against the sound port.
-No cell spans chips, so none can leave out an exchange between them."""
+The faults run in the first cell of each traffic kind, the control in
+every cell. Neither traffic loop spans chips, so no run can leave out an
+exchange between them."""
 from __future__ import annotations
 
 import pytest
 import torch
 
-from conftest import SEED, cell_files, shrink
+from conftest import CELLS, FIRST, SEED, cell_files, shrink
 
 
 @pytest.fixture
@@ -87,7 +89,7 @@ TRAIN_FAULTS = {"unchanged": _unchanged_step, "half_loss": _half_loss}
 def test_view_fault_fails(run_cell, port, monkeypatch, fault):
     lg, ts = port
     VIEW_FAULTS[fault](lg if fault != "half_cut" else ts, monkeypatch)
-    code, line = run_cell("campus3m-view-1080p")
+    code, line = run_cell(FIRST["flythrough"])
     assert code == 0 and line["correct"] is False and line["failed"] >= 1
 
 
@@ -95,12 +97,11 @@ def test_view_fault_fails(run_cell, port, monkeypatch, fault):
 def test_train_fault_fails(run_cell, port, monkeypatch, fault):
     lg, ts = port
     TRAIN_FAULTS[fault](lg if fault == "unchanged" else ts, monkeypatch)
-    code, line = run_cell("campus3m-train-1080p")
+    code, line = run_cell(FIRST["train-cycle"])
     assert code == 0 and line["correct"] is False
 
 
-@pytest.mark.parametrize("cell", ["campus3m-view-1080p",
-                                  "campus3m-train-1080p"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_control_separates(run_cell, cell):
     """The control (the reference one precision lower in the program's
     place), and for the training cell the half-batch fault planted in the

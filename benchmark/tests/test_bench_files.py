@@ -38,13 +38,24 @@ def test_names_units_and_bounds():
 
 
 def test_every_cell_loads_and_reports():
+    """Whatever cells BENCHMARK.json lists: unique names, at most 24, one
+    or four chips with at most a quarter (one at least) on four, each
+    cell's configuration, traffic and limits files loading, and a traffic
+    kind that the runner drives."""
+    from benchmark.harness import runner
+
     b = bench()
     cells = [w["name"] for w in b["workloads"]]
-    assert cells == ["campus3m-view-1080p", "campus3m-train-1080p"]
+    assert 1 <= len(cells) <= 24 and len(cells) == len(set(cells))
+    assert all(NAME.match(c) for c in cells)
+    chips = [w["chips"] for w in b["workloads"]]
+    assert set(chips) <= {1, 4}
+    assert chips.count(4) <= max(1, len(cells) // 4)
+    assert len({(w["config"], w["traffic"]) for w in b["workloads"]}) \
+        == len(cells)
     for cell in cells:
         wl, cfg, tr = cell_files(cell)
-        assert wl["chips"] == 1 and tr["kind"] in ("flythrough",
-                                                   "train-cycle")
+        assert tr["kind"] in runner.LOOPS
         assert cfg["name"] == wl["config"]
         e2e = {m["name"] for m in b["end_to_end"]
                if "workloads" not in m or cell in m["workloads"]}

@@ -8,7 +8,7 @@ import sys
 
 import pytest
 
-from conftest import ROOT
+from conftest import CELLS, FIRST, ROOT
 
 RUN = """
 import os, sys, time, json
@@ -52,12 +52,12 @@ def _top_level_modules(code: str, **fmt) -> set:
     return set(json.loads(out.stdout.strip().splitlines()[-1]))
 
 
-@pytest.mark.parametrize("cell,trace", [
-    ("campus3m-view-1080p", False), ("campus3m-view-1080p", True),
-    ("campus3m-train-1080p", True)])
+@pytest.mark.parametrize("cell,trace", [(FIRST["flythrough"], False)]
+                         + [(cell, True) for cell in CELLS])
 def test_run_loads_no_jax(cell, trace):
-    """A whole run, the traced one with every per-layer metric file
-    loaded, as far as its result line."""
+    """A whole run as far as its result line: each cell traced, with every
+    per-layer metric file it lists loaded, and the first view cell
+    untraced."""
     mods = _top_level_modules(RUN, cell=cell, trace=trace)
     assert "log_tpu_torch" in mods
     assert not mods & {"jax", "jaxlib", "flax", "log_tpu"}
@@ -89,5 +89,5 @@ def test_late_import_refused(run_cell, monkeypatch):
         return types.SimpleNamespace(read=read_and_import)
 
     monkeypatch.setattr(runner, "load_metric", load_metric)
-    code, line = run_cell("campus3m-view-1080p", trace=1)
+    code, line = run_cell(FIRST["flythrough"], trace=1)
     assert code != 0 and line is None

@@ -1,7 +1,8 @@
 """The readers of the program's spans (benchmark/harness/spans.py and the
 seven metric files on it) on a synthetic trace whose device intervals and
 nested spans are known: each idle metric's value, idle with no span of
-the program falling to no layer, and the sync counts."""
+the program falling to no layer, and the sync counts; and the training
+step's launch and pair-demand readers on the same trace."""
 from __future__ import annotations
 
 import pytest
@@ -89,6 +90,24 @@ def test_train_idle_and_syncs():
     assert read("cut_idle_ms.train", lay) == pytest.approx(4 * ms)
     assert read("optimizer_idle_ms.train", lay) == pytest.approx(23 * ms)
     assert read("host_syncs_per_step.train", lay) == 6
+
+
+def test_train_step_counters():
+    """launches_per_step.train: the window's kernels a step, None where it
+    holds none; pair_demand.train: the mean of the steps' own pair_total,
+    None where a step reports none."""
+    top = "bench.training_step"
+    lay = _layer(STEP, STEP_BUSY, 2, 100, top)
+    assert read("launches_per_step.train", lay) == len(STEP_BUSY)
+    assert read("launches_per_step.train",
+                _layer(STEP, [], 2, 100, top)) is None
+    for stats, want in [
+            ([{"pair_total": 3.0e6}, {"pair_total": 2.0e6}], 2.5e6),
+            ([{"pair_total": 3.0e6}, {"num_rendered": 5.0}], None),
+            ([{"pair_total": -1.0}, {"pair_total": 2.0e6}], None),
+            ([], None)]:
+        lay.update(step_stats=stats)
+        assert read("pair_demand.train", lay) == want, stats
 
 
 @pytest.mark.parametrize("cell,ranges,busy,top,reads", [
