@@ -43,7 +43,7 @@ def view_readings(cfg: dict, tr: dict, seed: int, dev, prec=ref_math.CONTROL):
     drawn from the seed, as a run checks them."""
     ckpt = inputs.make_tree(cfg["scene"]["n_roots"], seed,
                             cfg["model"]["gaussian"]["sh_degree"], dev)
-    cam = cfg["camera"]
+    cam = inputs.camera_of(cfg, tr)
     cams = inputs.orbit(seed, tr["poses"], cam["height"], cam["width"],
                         cam["focal"], tr["height"], tr["radius"])
     rng = np.random.default_rng(seed % (1 << 63))
@@ -69,7 +69,7 @@ def train_readings(cfg: dict, tr: dict, seed: int, dev):
     with the half-batch fault, each against the float32 reference."""
     ckpt = inputs.make_tree(cfg["scene"]["n_roots"], seed,
                             cfg["model"]["gaussian"]["sh_degree"], dev)
-    cam = cfg["camera"]
+    cam = inputs.camera_of(cfg, tr)
     V = tr["views"]
     cams = inputs.orbit(seed, V, cam["height"], cam["width"], cam["focal"],
                         tr["height"], tr["radius"])

@@ -140,6 +140,13 @@ def host_tree(cfg: dict, seed: int, device) -> dict:
     return host
 
 
+def camera_of(cfg: dict, traffic: dict) -> dict:
+    """The camera a cell renders at ({"height", "width", "focal"}): the
+    traffic file's `camera` block where it has one (what a viewer or a
+    trainer asks for), else the configuration's."""
+    return traffic.get("camera", cfg["camera"])
+
+
 def orbit_camera(theta: float, H: int, W: int, focal: float, height: float,
                  radius: float, znear: float = 0.01,
                  zfar: float = 1000.0) -> dict:

@@ -5,11 +5,12 @@ The cell (BENCHMARK.json `workloads`) names a configuration, whose file
 holds the model's arguments, the scene, the camera and the state the
 program is put in, and a traffic mix, whose file under
 benchmark/traffic/ names the loop that runs it (`kind`) and its
-parameters. With --trace 0 the run reports the cell's end-to-end metrics;
-with --trace 1 a short traced window and the per-layer metrics that list
-the cell under `workloads`, each read by its own file under
-benchmark/metrics/ (`read(layer)`, None where it finds nothing to
-read). Every run holds what its timed path produced
+parameters, and may set the camera the cell renders at in place of the
+configuration's (`inputs.camera_of`). With --trace 0 the run reports
+the cell's end-to-end metrics; with --trace 1 a short traced window and
+the per-layer metrics that list the cell under `workloads`, each read by
+its own file under benchmark/metrics/ (`read(layer)`, None where it
+finds nothing to read). Every run holds what its timed path produced
 against the reference (harness/check.py) and prints each compared number
 beside its limit, last on standard error and last in the result line.
 """

@@ -59,7 +59,7 @@ def run(ctx) -> dict:
     from log_tpu_torch.utils.trainer import Trainer
 
     cfg, tr, dev, seed = ctx.cfg, ctx.traffic, ctx.device, ctx.seed
-    cam_cfg = cfg["camera"]
+    cam_cfg = inputs.camera_of(cfg, tr)
     H, W, V = cam_cfg["height"], cam_cfg["width"], tr["views"]
     model, host = build(cfg, seed, V, dev)
     cams = inputs.orbit(seed, V, H, W, cam_cfg["focal"], tr["height"],

@@ -83,7 +83,7 @@ def run(ctx) -> dict:
     from log_tpu_torch.render.renderer import NaiveRendererAndLoss
 
     cfg, tr, dev = ctx.cfg, ctx.traffic, ctx.device
-    cam_cfg = cfg["camera"]
+    cam_cfg = inputs.camera_of(cfg, tr)
     model, host = build(cfg, ctx.seed, dev)
     renderer = NaiveRendererAndLoss(split="demo", background=tr["background"],
                                     device=dev)

@@ -45,12 +45,18 @@ for _cell in CELLS:
     FIRST.setdefault(cell_files(_cell)[2]["kind"], _cell)
 
 
+SHRUNK_CAMERA = {"height": 64, "width": 256, "focal": 300.0}
+
+
 def shrink(cfg: dict, tr: dict):
     """The cell at a size a CPU test holds: 2,000 roots (10,800 points), a
-    64 x 256 image at focal 300, a few frames or steps."""
+    64 x 256 image at focal 300 (the configuration's camera, and the
+    traffic's where the traffic sets its own), a few frames or steps."""
     cfg, tr = copy.deepcopy(cfg), copy.deepcopy(tr)
     cfg["scene"]["n_roots"] = 2000
-    cfg["camera"] = {"height": 64, "width": 256, "focal": 300.0}
+    cfg["camera"] = dict(SHRUNK_CAMERA)
+    if "camera" in tr:
+        tr["camera"] = dict(SHRUNK_CAMERA)
     if tr["kind"] == "flythrough":
         tr.update(poses=8, warmup_frames=2, trace_frames=2, check_frames=2)
     else:
@@ -66,12 +72,16 @@ def cpu_tiled(monkeypatch):
 
 @pytest.fixture
 def run_cell(cpu_tiled, monkeypatch):
-    """run_cell(cell, trace=0, seed=SEED) -> (exit code, result line) of the
-    shrunk cell on the CPU, through runner.execute; run_cell.res is what
-    the traffic loop returned to the runner (its layer among it)."""
+    """run_cell(cell, trace=0, seed=SEED, camera=None) -> (exit code,
+    result line) of the shrunk cell on the CPU, through runner.execute;
+    camera, where given, is set on the traffic as its own camera block.
+    run_cell.res is what the traffic loop returned to the runner (its layer
+    among it); run_cell.orbits and run_cell.gts the (height, width, focal)
+    of every orbit and the (height, width) of every ground truth that
+    `inputs` made in the test, control readings included."""
     import torch
 
-    from benchmark.harness import runner
+    from benchmark.harness import inputs, runner
 
     def remembered(loop):
         def drive(ctx):
@@ -82,11 +92,27 @@ def run_cell(cpu_tiled, monkeypatch):
     for kind, loop in list(runner.LOOPS.items()):
         monkeypatch.setitem(runner.LOOPS, kind, remembered(loop))
 
-    def run(cell: str, trace: int = 0, seed: int = SEED):
+    orbit, ground_truth = inputs.orbit, inputs.ground_truth
+
+    def orbit_seen(seed, n, H, W, focal, *a, **kw):
+        run.orbits.append((H, W, focal))
+        return orbit(seed, n, H, W, focal, *a, **kw)
+
+    def ground_truth_seen(seed, n_views, H, W, *a, **kw):
+        run.gts.append((H, W))
+        return ground_truth(seed, n_views, H, W, *a, **kw)
+
+    monkeypatch.setattr(inputs, "orbit", orbit_seen)
+    monkeypatch.setattr(inputs, "ground_truth", ground_truth_seen)
+
+    def run(cell: str, trace: int = 0, seed: int = SEED, camera=None):
         wl, cfg, tr = cell_files(cell)
         cfg, tr = shrink(cfg, tr)
+        if camera is not None:
+            tr["camera"] = dict(camera)
         ctx = runner.Ctx(cell, cfg, tr, torch.device("cpu"), seed, 0.2,
                          bool(trace), time.time())
         return runner.execute(ctx, bench(), wl)
 
+    run.orbits, run.gts = [], []
     return run

@@ -108,7 +108,7 @@ def test_control_separates(run_cell, cell):
     reference, come out not correct by the cell's own judgement and
     limits, while the sound port comes out correct, at the test's size."""
     from benchmark import control
-    from benchmark.harness import check, runner
+    from benchmark.harness import check, inputs, runner
 
     _, sound = run_cell(cell)
     assert sound["correct"] is True
@@ -125,3 +125,7 @@ def test_control_separates(run_cell, cell):
     for name, numbers in read.items():
         correct, rows = check.judge(numbers, limits)
         assert correct is False, (name, rows, sound["checks"])
+    # the control reads at the cell's camera, as the run does
+    cam = inputs.camera_of(cfg, tr)
+    assert set(run_cell.orbits) == {(cam["height"], cam["width"],
+                                     cam["focal"])}

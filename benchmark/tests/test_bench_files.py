@@ -40,9 +40,11 @@ def test_names_units_and_bounds():
 def test_every_cell_loads_and_reports():
     """Whatever cells BENCHMARK.json lists: unique names, at most 24, one
     or four chips with at most a quarter (one at least) on four, each
-    cell's configuration, traffic and limits files loading, and a traffic
-    kind that the runner drives."""
-    from benchmark.harness import runner
+    cell's configuration, traffic and limits files loading, a traffic
+    kind that the runner drives, and the camera the cell renders at (the
+    traffic's where it sets one) of positive whole height and width and a
+    positive focal."""
+    from benchmark.harness import inputs, runner
 
     b = bench()
     cells = [w["name"] for w in b["workloads"]]
@@ -57,6 +59,11 @@ def test_every_cell_loads_and_reports():
         wl, cfg, tr = cell_files(cell)
         assert tr["kind"] in runner.LOOPS
         assert cfg["name"] == wl["config"]
+        cam = inputs.camera_of(cfg, tr)
+        assert set(cam) == {"height", "width", "focal"}
+        assert all(isinstance(cam[k], int) and cam[k] > 0
+                   for k in ("height", "width"))
+        assert cam["focal"] > 0
         e2e = {m["name"] for m in b["end_to_end"]
                if "workloads" not in m or cell in m["workloads"]}
         assert "setup_s" in e2e and len(e2e) >= 2

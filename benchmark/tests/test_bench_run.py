@@ -10,6 +10,19 @@ import pytest
 from conftest import CELLS, FIRST, bench, cell_files, shrink
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
+# a camera that a traffic file sets, unlike the shrunk configuration's
+TRAFFIC_CAMERA = {"height": 48, "width": 192, "focal": 220.0}
+
+
+def assert_camera(run_cell, cam):
+    """Every orbit and ground truth of the run at cam, and a traced run's
+    work counted over its pixels."""
+    H, W = cam["height"], cam["width"]
+    assert run_cell.orbits and set(run_cell.orbits) == {(H, W, cam["focal"])}
+    lay = run_cell.res["layer"]
+    assert set(run_cell.gts) == ({(H, W)} if lay["kind"] == "train"
+                                 else set())
+    assert all(w["pixels"] == H * W for w in lay["works"])
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -24,6 +37,9 @@ def test_cell_runs_correct(run_cell, cell):
     assert line["attempted"] >= 1
     for value, limit in line["checks"].values():
         assert value <= limit
+    # a traffic with no camera of its own renders at the configuration's
+    # camera; shrunk, a traffic's own camera is the configuration's
+    assert_camera(run_cell, shrink(*cell_files(cell)[1:])[0]["camera"])
     if run_cell.res["layer"]["kind"] == "train":
         # an untraced window keeps no step's counters
         assert run_cell.res["layer"]["step_stats"] == []
@@ -45,8 +61,15 @@ def test_reference_agrees_with_port_cpu(run_cell):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_traced_line(run_cell, cell):
-    code, line = run_cell(cell, trace=1)
+    """The traced line of every cell; the first cell of each traffic kind
+    runs with a camera set on its traffic, which its orbit, ground truth
+    and traced work follow in place of the configuration's."""
+    first = cell in FIRST.values()
+    code, line = run_cell(cell, trace=1,
+                          camera=TRAFFIC_CAMERA if first else None)
     assert code == 0
+    assert_camera(run_cell, TRAFFIC_CAMERA if first else
+                  shrink(*cell_files(cell)[1:])[0]["camera"])
     assert list(line) == KEYS[:5] + ["breakdown", "checks"]
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
     assert line["device"]["window_s"] > 0
